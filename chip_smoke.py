@@ -26,15 +26,26 @@ Phases, each of which exits non-zero on failure:
            regeneration: device busy time per step, the device's idle
            share and the largest device operations;
 6. toy     a small coupler on the GPU against the same coupler on the CPU
-           (the plain versions) over 3 steps.
+           (the plain versions) over 3 steps;
+7. polyclip the generic-polygon path: Greenland as ~165,500 hexagons of
+           25 km2 (the 5 km cells' area) in the SeaRISE plane x ModelE
+           2x2.5 at subdiv 2, with every launch counter set to 0 just
+           before make_exchange_grid builds it through the convex-clip
+           kernel and read just after.  Column sums (repaired and raw),
+           the convex-clip kernel against its plain version on every pair
+           and a seeded sample against the f64 oracle, concave cells, the
+           exchange grid's AvI/IvA through the regrid kernels, and the
+           overlap CLI against the in-process build.
 
 The last three lines are the kernels' JSON summary, the card's name and
 power limit (nvidia-smi), and {"ok": true, "device": {...}}.  Every timing
 line carries the card's name and power limit.
 """
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +57,7 @@ REGEN = 3
 TRANSPORT_TOL = 1e-10
 RAW_TOL = 5e-7            # tests/test_accuracy_contract.py's 6-pass bound
 COLSUM_TOL = 1e-12
+HEX_R = 3102.0            # hexagon circumradius, m: 25.0 km2 per cell
 CARD = ""
 
 
@@ -276,51 +288,63 @@ def phase_main(specA, specI, device, counters):
 
 # -- phase 4: the regrid kernels on the real matrices ----------------------
 
-def phase_spmm(cp, device):
-    import scipy.sparse as sp
+def check_spmm(kern, csr, A, w, tag, rng):
+    """``kern`` on ``csr`` (the pack of sparse matrix ``A``, destination
+    weights ``w``) at nv = 16 against its plain version and the f64 scipy
+    product; returns (max |kernel - plain|, kernel ms, plain ms)."""
     import torch
-    from icebin_tpu_torch.ops.apply import (spmm_dest_ice, spmm_dest_small,
-                                            spmm_ref)
+    from icebin_tpu_torch.ops.apply import spmm_ref
+    device = csr.device
+    x = (260.0 + 30.0 * rng.uniform(size=(csr.n_src, 16))).astype(np.float32)
+    xt = torch.as_tensor(x, device=device)
+    got = kern(csr, xt)
+    again = kern(csr, xt)
+    plain = spmm_ref(csr, xt)
+    torch.cuda.synchronize()
+    want = np.asarray(A @ x.astype(np.float64))
+    live = w > 0
+    want[live] /= w[live, None]
+    g = got.cpu().numpy().astype(np.float64)
+    raw = np.abs(g[live] - want[live]).max() / np.abs(want[live]).max()
+    d_plain = (got - plain).abs().max().item()
+    ident = bool(torch.equal(got, again))
+    ms = time_ms(lambda: kern(csr, xt), 50)
+    plain_ms = time_ms(lambda: spmm_ref(csr, xt), 10)
+    per_row = (csr.rowptr[1:] - csr.rowptr[:-1])
+    say(f"{kern.__name__} {tag}: ({csr.n_src} x 16) -> ({csr.n_dst} x 16), "
+        f"{csr.vals.numel()} nnz in {int((per_row > 0).sum())} live rows of "
+        f"at most {int(per_row.max())}: raw error vs f64 oracle {raw:.3e} "
+        f"(limit {RAW_TOL:g}), max |kernel - plain| {d_plain:.3e} (limit "
+        f"1e-4), repeat bit-identical {ident}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    check(raw < RAW_TOL, f"{tag} raw error {raw:.3e}")
+    check(ident, f"{tag} repeat run is not bit-identical")
+    check(d_plain < 1e-4, f"{tag} kernel vs plain {d_plain:.3e}")
+    return d_plain, ms, plain_ms
+
+
+def check_pack(M, pack, names, rng):
+    """Both directions of ``pack`` (the pack of WeightedMatrix ``M``, rows
+    the small side) through check_spmm; ``names`` tags (small <- ice,
+    ice <- small).  Returns {kernel name: [(tag, err, ms, plain_ms)]}."""
+    import scipy.sparse as sp
+    from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+    S = sp.csr_matrix((M.vals, (M.rows, M.cols)), shape=M.shape)
+    return {kern.__name__: [(tag, *check_spmm(kern, csr, A, w, tag, rng))]
+            for kern, csr, A, w, tag in (
+                (spmm_dest_small, pack.small, S, M.wM, names[0]),
+                (spmm_dest_ice, pack.ice, S.T.tocsr(), M.Mw, names[1]))}
+
+
+def phase_spmm(cp):
     sc = cp.sheets["greenland"]
     rng = np.random.default_rng(2)
     res = {"spmm_dest_small": [], "spmm_dest_ice": []}
     for name in ("EvI", "AvI"):
         M = sc.rm.matrix(name, cp.cfg.params)
-        S = sp.csr_matrix((M.vals, (M.rows, M.cols)), shape=M.shape)
-        pack = sc.mat(name).pack
-        for kern, csr, A, w, tag in (
-                (spmm_dest_small, pack.small, S, M.wM, name),
-                (spmm_dest_ice, pack.ice, S.T.tocsr(), M.Mw,
-                 "Iv" + name[0])):
-            x = (260.0 + 30.0 * rng.uniform(size=(csr.n_src, 16))
-                 ).astype(np.float32)
-            xt = torch.as_tensor(x, device=device)
-            got = kern(csr, xt)
-            again = kern(csr, xt)
-            plain = spmm_ref(csr, xt)
-            torch.cuda.synchronize()
-            want = np.asarray(A @ x.astype(np.float64))
-            live = w > 0
-            want[live] /= w[live, None]
-            g = got.cpu().numpy().astype(np.float64)
-            raw = (np.abs(g[live] - want[live]).max()
-                   / np.abs(want[live]).max())
-            d_plain = (got - plain).abs().max().item()
-            ident = bool(torch.equal(got, again))
-            ms = time_ms(lambda: kern(csr, xt), 50)
-            plain_ms = time_ms(lambda: spmm_ref(csr, xt), 10)
-            per_row = (csr.rowptr[1:] - csr.rowptr[:-1])
-            say(f"{kern.__name__} {tag}: ({csr.n_src} x 16) -> ({csr.n_dst} "
-                f"x 16), {csr.vals.numel()} nnz in "
-                f"{int((per_row > 0).sum())} live rows of at most "
-                f"{int(per_row.max())}: raw error vs f64 oracle {raw:.3e} "
-                f"(limit {RAW_TOL:g}), max |kernel - plain| {d_plain:.3e} "
-                f"(limit 1e-4), repeat bit-identical {ident}; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-            check(raw < RAW_TOL, f"{tag} raw error {raw:.3e}")
-            check(ident, f"{tag} repeat run is not bit-identical")
-            check(d_plain < 1e-4, f"{tag} kernel vs plain {d_plain:.3e}")
-            res[kern.__name__].append((tag, d_plain, ms, plain_ms))
+        for kern, rows in check_pack(M, sc.mat(name).pack,
+                                     (name, "Iv" + name[0]), rng).items():
+            res[kern] += rows
     return res
 
 
@@ -407,6 +431,180 @@ def phase_toy(device):
     check(worst < 1e-6, f"toy ledger differs ({worst:.3e})")
 
 
+# -- phase 7: the generic-polygon path -------------------------------------
+
+def hex_mesh(specI):
+    """Greenland as pointy-top regular hexagons of HEX_R circumradius (25.0
+    km2, the area of the main path's 5 km cells) in ``specI``'s plane:
+    centres 5,373 m apart in x and 4,653 m in y, odd rows offset by half,
+    inside ``specI``'s box; vertices inverse-projected to lon/lat."""
+    from icebin_tpu_torch.grid import GridSpecGeneric
+    dx, dy = np.sqrt(3.0) * HEX_R, 1.5 * HEX_R
+    x0, x1, y0, y1 = specI.xb[0], specI.xb[-1], specI.yb[0], specI.yb[-1]
+    ys = np.arange(y0, y1, dy)
+    xs = (np.arange(x0, x1, dx), np.arange(x0 + dx / 2, x1, dx))
+    cx = np.concatenate([xs[j % 2] for j in range(len(ys))])
+    cy = np.concatenate([np.full(len(xs[j % 2]), y) for j, y in enumerate(ys)])
+    ang = np.radians(30.0 + 60.0 * np.arange(6))
+    vx = cx[:, None] + HEX_R * np.cos(ang)[None, :]
+    vy = cy[:, None] + HEX_R * np.sin(ang)[None, :]
+    lon, lat = specI.projection.xy2ll(vx, vy)
+    return GridSpecGeneric(polygons=np.stack([lon, lat], axis=-1),
+                           projection=specI.projection,
+                           name="greenland_hex_25km2")
+
+
+def tri_grid(x0, x1, y0, y1, n):
+    """2 n^2 triangles tiling [x0, x1] x [y0, y1] (lon/lat degrees)."""
+    xs, ys = np.linspace(x0, x1, n + 1), np.linspace(y0, y1, n + 1)
+    tris = []
+    for j in range(n):
+        for i in range(n):
+            a, b, c, d = xs[i], xs[i + 1], ys[j], ys[j + 1]
+            tris += [[[a, c], [b, c], [b, d]], [[a, c], [b, d], [a, d]]]
+    return np.asarray(tris)
+
+
+def check_concave(device):
+    """Concave clip cells (tests/test_grid_generality.py:317-321, :399-400)
+    through the convex-clip kernel: an L and a dart, and an L padded at its
+    reflex corner, ear-clipped into triangles whose overlaps sum back to
+    the cell; raw column sums against the exact areas."""
+    from icebin_tpu_torch.grid import (GridSpecGeneric, PlateCarree,
+                                       make_exchange_grid)
+    L = [[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [1.0, 1.0], [1.0, 3.0],
+         [0.0, 3.0]]
+    dart = [[5.0, 0.0], [7.0, 1.0], [9.0, 0.0], [7.0, 3.0], [7.0, 3.0],
+            [7.0, 3.0]]
+    L_pad = [[1.0, 3.0], [0.0, 3.0], [0.0, 0.0], [3.0, 0.0], [3.0, 1.0],
+             [1.0, 1.0], [1.0, 1.0], [1.0, 1.0]]
+    worst = 0.0
+    for cells, subj, want in (
+            ([L, dart], tri_grid(-1.0, 10.0, -1.0, 4.0, 12), [5e6, 4e6]),
+            ([L_pad], tri_grid(-1.0, 4.0, -1.0, 4.0, 10), [5e6])):
+        clip = GridSpecGeneric(polygons=np.asarray(cells),
+                               projection=PlateCarree(scale=1e3))
+        xg = make_exchange_grid(GridSpecGeneric(polygons=subj), clip,
+                                device=device, repair=False)
+        worst = max(worst, np.max(np.abs(xg.area_sums_I() - want) / want))
+    say(f"polyclip: concave and pad-corner cells, max |raw column sum - "
+        f"exact area| / area {worst:.3e} (limit 2e-5)")
+    check(worst < 2e-5, f"concave cells off by {worst:.3e}")
+
+
+def check_overlap_cli(specA, specI, device):
+    """python -m icebin_tpu_torch.cli.overlap on grid files against the
+    in-process build: the same exchange grid bit for bit."""
+    from icebin_tpu_torch.grid import make_exchange_grid
+    from icebin_tpu_torch.io import read_exchange, write_grid
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        a, i, x = (os.path.join(d, f) for f in ("a.nc", "i.nc", "x.nc"))
+        write_grid(a, specA)
+        write_grid(i, specI)
+        t = time.perf_counter()
+        # python -m puts its working directory, the checkout, on sys.path
+        out = subprocess.run([sys.executable, "-m",
+                              "icebin_tpu_torch.cli.overlap", a, i, x,
+                              "--device", str(device)],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        cli_ms = 1e3 * (time.perf_counter() - t)
+        check(out.returncode == 0, f"overlap CLI failed: {out.stderr}")
+        xc = read_exchange(x)
+    xg = make_exchange_grid(specA, specI, subdiv=2, device=device)
+    same = all(np.array_equal(getattr(xc, k), getattr(xg, k))
+               for k in ("iA", "iI", "area", "centroid"))
+    say(f"overlap CLI on {specA.ncells} x {specI.ncells} cell grid files: "
+        f"{out.stdout.strip()}; {cli_ms:.1f} ms with its interpreter; the "
+        f"same {xc.ncells} overlaps as the in-process build bit for bit "
+        f"{same}")
+    check(same, "the overlap CLI's exchange grid differs from the build's")
+
+
+def phase_polyclip(specA, specI, device, counters):
+    import torch
+    from icebin_tpu_torch.grid import (assemble_polyclip, clip_poly_host,
+                                       make_exchange_grid, polyclip_pairs,
+                                       polyclip_pieces)
+    from icebin_tpu_torch.ops.clip import (clip_areas_centroids_poly,
+                                           clip_areas_centroids_poly_ref,
+                                           make_polyclip_engine,
+                                           recentre_poly_pairs)
+    from icebin_tpu_torch.ops.csr import csr_pack
+    from icebin_tpu_torch.regrid import WeightedMatrix
+
+    hexes, mesh_ms = wall_ms(lambda: hex_mesh(specI))
+    areas = np.abs(hexes.plane_areas())
+    _, pieces_ms = wall_ms(lambda: polyclip_pieces(hexes))
+    (pairA, pairI, subj, clip, p2c), pairs_ms = wall_ms(
+        lambda: polyclip_pairs(specA, hexes, 2))
+    (a_w, c_w), engine_ms = wall_ms(
+        lambda: make_polyclip_engine(device=device)(subj, clip))
+    xr, assemble_ms = wall_ms(lambda: assemble_polyclip(
+        pairA, pairI, a_w, c_w, p2c, specA, hexes, repair=False))
+    say(f"polyclip: {hexes.ncells} hexagons of {areas.mean() / 1e6:.4f} km2 "
+        f"x {specA.ncells} ModelE cells at subdiv 2: {len(pairA)} candidate "
+        f"pairs, {len(p2c)} clip pieces; host ms: mesh {mesh_ms:.1f}, pieces "
+        f"(projection + decomposition) {pieces_ms:.1f}, pairs (pieces "
+        f"included) {pairs_ms:.1f}, convex-clip engine (recentring, copies, "
+        f"kernel) {engine_ms:.1f}, assembly {assemble_ms:.1f}")
+
+    for k in counters:
+        k.launches = 0
+    xg, build_ms = wall_ms(lambda: make_exchange_grid(
+        specA, hexes, subdiv=2, device=device))
+    launches = {k.__name__: k.launches for k in counters}
+    col = xg.area_sums_I()
+    rel = np.max(np.abs(col - areas) / areas)
+    raw = np.max(np.abs(xr.area_sums_I() - areas) / areas)
+    key = xg.iA.astype(np.int64) * xg.nI + xg.iI
+    dup = len(key) - len(np.unique(key))
+    say(f"polyclip: make_exchange_grid {build_ms:.1f} ms, {xg.ncells} "
+        f"overlaps, launch counts {launches}; max |column sum - hexagon "
+        f"area| / area {rel:.3e} repaired (limit {COLSUM_TOL:g}), "
+        f"{raw:.3e} raw (limit 1e-5); {dup} duplicate (iA, iI) pairs")
+    check(launches["clip_areas_centroids_poly"] > 0,
+          "the generic build did not launch the convex-clip kernel")
+    check(rel < COLSUM_TOL, f"repaired column sums off by {rel:.3e}")
+    check(raw < 1e-5, f"raw column sums off by {raw:.3e}")
+    check(dup == 0, f"{dup} duplicate (iA, iI) pairs")
+
+    p, q, _ = recentre_poly_pairs(subj, clip)
+    p = torch.as_tensor(p, device=device)
+    q = torch.as_tensor(q, device=device)
+    a, _ = clip_areas_centroids_poly(p, q)
+    a_ref, _ = clip_areas_centroids_poly_ref(p, q)
+    cell = torch.as_tensor(areas[p2c[pairI]], device=device)
+    err = ((a.double() - a_ref.double()).abs() / cell).max().item()
+    abs_err = (a - a_ref).abs().max().item()              # m2
+    rng = np.random.default_rng(7)
+    idx = np.sort(rng.choice(len(pairA), min(8192, len(pairA)),
+                             replace=False))
+    a_o, _ = clip_poly_host(subj[idx], clip[idx])
+    err_o = np.max(np.abs(np.abs(a.cpu().numpy()[idx].astype(np.float64))
+                          - a_o) / areas[p2c[pairI[idx]]])
+    ms = time_ms(lambda: clip_areas_centroids_poly(p, q), 20)
+    plain_ms = time_ms(lambda: clip_areas_centroids_poly_ref(p, q), 2)
+    say(f"polyclip: convex-clip kernel on {len(pairA)} pairs at V0="
+        f"{p.shape[1]}, Vc={q.shape[1]}: max |area - plain| / hexagon area "
+        f"{err:.3e} (limit 1e-5), max |area - f64 oracle| / hexagon area "
+        f"{err_o:.3e} on {len(idx)} seeded pairs (limit 1e-5); kernel "
+        f"{ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms")
+    check(err < 1e-5, f"convex-clip kernel vs plain {err:.3e}")
+    check(err_o < 1e-5, f"convex-clip kernel vs f64 oracle {err_o:.3e}")
+
+    check_concave(device)
+    M = WeightedMatrix(rows=xg.iA, cols=xg.iI, vals=xg.area,
+                       shape=(xg.nA, xg.nI))
+    check_pack(M, csr_pack(M, nv=16, device=device), ("AvI", "IvA"),
+               np.random.default_rng(3))
+    check_overlap_cli(specA, specI, device)
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches["clip_areas_centroids_poly"]}
+
+
 def main():
     global CARD
     try:
@@ -418,7 +616,8 @@ def main():
     try:
         from icebin_tpu_torch.ops import _build
         from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
-        from icebin_tpu_torch.ops.clip import clip_areas_centroids
+        from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
+                                               clip_areas_centroids_poly)
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
     device = torch.device("cuda", 0)
@@ -436,10 +635,13 @@ def main():
     clip = phase_clip(specA, specI, device)
     counters = (clip_areas_centroids, spmm_dest_ice, spmm_dest_small)
     cp, launches, step_ms = phase_main(specA, specI, device, counters)
-    spmm = phase_spmm(cp, device)
+    spmm = phase_spmm(cp)
     phase_profile(cp, step_ms, device)
     phase_toy(device)
+    poly = phase_polyclip(specA, specI, device,
+                          counters + (clip_areas_centroids_poly,))
     check("jax" not in sys.modules, "JAX was imported")
+    launches["clip_areas_centroids_poly"] = poly["launches"]
 
     def row(name, source, replaces, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": source,
@@ -459,6 +661,9 @@ def main():
         row("clip_areas_centroids", "icebin_tpu_torch/csrc/clip.cu",
             "icebin_tpu/ops/pallas_clip.py:142", clip["max_abs_err"],
             clip["ms"], clip["plain_ms"]),
+        row("clip_areas_centroids_poly", "icebin_tpu_torch/csrc/clip.cu",
+            "icebin_tpu/ops/pallas_clip.py:120", poly["max_abs_err"],
+            poly["ms"], poly["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(CARD)

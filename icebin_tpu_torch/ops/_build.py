@@ -34,6 +34,7 @@ _SIGNATURES = {
     "spmm_dest_small": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "spmm_dest_ice": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "clip_rect": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
+    "clip_poly": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
     "icebin_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

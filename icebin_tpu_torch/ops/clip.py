@@ -1,14 +1,21 @@
-"""Batched polygon-vs-rectangle clipping: the port of
-``icebin_tpu/ops/clip.py`` (``clip_areas_centroids``, ``make_clip_engine``)
-and of the Pallas kernel ``icebin_tpu/ops/pallas_clip.py:_clip_kernel``.
+"""Batched polygon clipping: the port of ``icebin_tpu/ops/clip.py``
+(``clip_areas_centroids``, ``make_clip_engine``, ``clip_areas_centroids_poly``,
+``make_polyclip_engine``) and of the Pallas kernels
+``icebin_tpu/ops/pallas_clip.py:_clip_kernel`` and ``:_polyclip_kernel``.
 
-* ``clip_areas_centroids_ref`` is the plain PyTorch version: the reference's
-  vectorised Sutherland--Hodgman data flow (each pass doubles the ring and
-  forward-fills invalid slots, ``icebin_tpu/oracle/clip.py`` docstring),
-  followed by the shoelace area and centroid.
-* ``clip_areas_centroids`` wraps the CUDA kernel (``csrc/clip.cu``): on CUDA
-  tensors it launches the kernel (counting launches in ``.launches``) or
-  raises; on CPU tensors it runs the plain version.
+* ``clip_areas_centroids_ref`` (subject rings x centred rectangles) and
+  ``clip_areas_centroids_poly_ref`` (subject rings x convex clip rings) are
+  the plain PyTorch versions: the reference's vectorised Sutherland--Hodgman
+  data flow (each pass doubles the ring and forward-fills invalid slots,
+  ``icebin_tpu/oracle/clip.py`` docstring), followed by the shoelace area
+  and centroid.
+* ``clip_areas_centroids`` and ``clip_areas_centroids_poly`` wrap the CUDA
+  kernels ``clip_rect`` and ``clip_poly`` (``csrc/clip.cu``): on CUDA
+  tensors they launch the kernel (counting launches in ``.launches``) or
+  raise; on CPU tensors they run the plain version.
+* ``make_clip_engine`` and ``make_polyclip_engine`` take world-coordinate
+  pairs, recentre each in f64, pad rings to the kernel's slot counts and
+  clip on a device in chunks.
 """
 from __future__ import annotations
 
@@ -19,10 +26,17 @@ from icebin_tpu_torch.ops import _build
 from icebin_tpu_torch.ops.apply import on_cpu
 
 __all__ = ["clip_areas_centroids", "clip_areas_centroids_ref",
-           "make_clip_engine", "recentre_pairs", "KERNEL_V0"]
+           "clip_areas_centroids_poly", "clip_areas_centroids_poly_ref",
+           "make_clip_engine", "make_polyclip_engine", "recentre_pairs",
+           "recentre_poly_pairs", "KERNEL_V0", "KERNEL_VC"]
 
-#: subject ring slot counts the kernel is built for (duplicate-padded up)
+#: subject ring slot counts the kernels are built for (duplicate-padded up)
 KERNEL_V0 = (8, 16)
+#: clip ring slot counts of the convex-clip kernel (duplicate-padded up)
+KERNEL_VC = (4, 8)
+#: pairs per step of the plain convex clip, which holds V0 * 2**Vc slots
+#: (16-32 KB) per pair
+PLAIN_CHUNK = 1 << 14
 
 
 def _propagate_last_valid(pts, valid):
@@ -55,14 +69,9 @@ def _halfplane_pass(pts, d):
     return _propagate_last_valid(out, valid)
 
 
-def clip_areas_centroids_ref(polys: torch.Tensor, rects: torch.Tensor):
-    """Plain version: polys (B, V0, 2), rects (B, 4) as (x0, y0, x1, y1) ->
-    (signed areas (B,), centroids (B, 2)); zero-area rings get slot 0."""
-    p = polys
-    p = _halfplane_pass(p, p[:, :, 0] - rects[:, 0:1])     # x >= x0
-    p = _halfplane_pass(p, rects[:, 2:3] - p[:, :, 0])     # x <= x1
-    p = _halfplane_pass(p, p[:, :, 1] - rects[:, 1:2])     # y >= y0
-    p = _halfplane_pass(p, rects[:, 3:4] - p[:, :, 1])     # y <= y1
+def _area_centroid(p):
+    """Shoelace (signed areas (B,), centroids (B, 2)) of rings (B, V, 2);
+    zero-area rings get slot 0."""
     x, y = p[:, :, 0], p[:, :, 1]
     xn, yn = torch.roll(x, -1, dims=1), torch.roll(y, -1, dims=1)
     cr = x * yn - xn * y
@@ -72,6 +81,62 @@ def clip_areas_centroids_ref(polys: torch.Tensor, rects: torch.Tensor):
     safe = torch.where(a.abs() > 0.0, 6.0 * a, 1.0)
     c = torch.where((a.abs() <= 0.0)[:, None], p[:, 0, :], c / safe[:, None])
     return a, c
+
+
+def clip_areas_centroids_ref(polys: torch.Tensor, rects: torch.Tensor):
+    """Plain version: polys (B, V0, 2), rects (B, 4) as (x0, y0, x1, y1) ->
+    (signed areas (B,), centroids (B, 2)); zero-area rings get slot 0."""
+    p = polys
+    p = _halfplane_pass(p, p[:, :, 0] - rects[:, 0:1])     # x >= x0
+    p = _halfplane_pass(p, rects[:, 2:3] - p[:, :, 0])     # x <= x1
+    p = _halfplane_pass(p, p[:, :, 1] - rects[:, 1:2])     # y >= y0
+    p = _halfplane_pass(p, rects[:, 3:4] - p[:, :, 1])     # y <= y1
+    return _area_centroid(p)
+
+
+def _clip_poly_rings(polys, clips):
+    """``icebin_tpu/ops/clip.py:clip_polys_polys``: one pass per clip edge
+    a -> b keeping d = cross(b - a, p - a) >= 0; (B, V0, 2) -> (B, V0 *
+    2**Vc, 2)."""
+    p = polys
+    vc = clips.shape[1]
+    for k in range(vc):
+        a = clips[:, k, :]
+        ex = clips[:, (k + 1) % vc, :] - a
+        d = (ex[:, None, 0] * (p[:, :, 1] - a[:, None, 1])
+             - ex[:, None, 1] * (p[:, :, 0] - a[:, None, 0]))
+        p = _halfplane_pass(p, d)
+    return p
+
+
+def clip_areas_centroids_poly_ref(polys: torch.Tensor, clips: torch.Tensor):
+    """Plain version: polys (B, V0, 2) x convex CCW clip rings (B, Vc, 2)
+    -> (signed areas (B,), centroids (B, 2)); zero-area rings get slot 0.
+    Runs ``PLAIN_CHUNK`` pairs at a time."""
+    if polys.shape[0] == 0:
+        return (polys.new_zeros(0), polys.new_zeros((0, 2)))
+    parts = [_area_centroid(_clip_poly_rings(polys[s:s + PLAIN_CHUNK],
+                                             clips[s:s + PLAIN_CHUNK]))
+             for s in range(0, polys.shape[0], PLAIN_CHUNK)]
+    return (torch.cat([a for a, _ in parts]),
+            torch.cat([c for _, c in parts]))
+
+
+def _launch(name, polys, other, *sizes):
+    """Run C entry point ``name`` on f32 (polys, other); returns (areas,
+    centroids)."""
+    polys, other = polys.contiguous(), other.contiguous()
+    B = polys.shape[0]
+    area = torch.empty(B, dtype=torch.float32, device=polys.device)
+    cent = torch.empty((B, 2), dtype=torch.float32, device=polys.device)
+    lib = _build.library()
+    with torch.cuda.device(polys.device):
+        stream = torch.cuda.current_stream(polys.device).cuda_stream
+        status = getattr(lib, name)(polys.data_ptr(), other.data_ptr(),
+                                    area.data_ptr(), cent.data_ptr(), B,
+                                    *sizes, stream)
+    _build.check(status, name)
+    return area, cent
 
 
 def clip_areas_centroids(polys: torch.Tensor, rects: torch.Tensor):
@@ -89,63 +154,115 @@ def clip_areas_centroids(polys: torch.Tensor, rects: torch.Tensor):
                          f" {tuple(rects.shape)}")
     if on_cpu(polys, "clip_areas_centroids"):
         return clip_areas_centroids_ref(polys, rects)
-    polys, rects = polys.contiguous(), rects.contiguous()
-    area = torch.empty(B, dtype=torch.float32, device=polys.device)
-    cent = torch.empty((B, 2), dtype=torch.float32, device=polys.device)
-    lib = _build.library()
-    with torch.cuda.device(polys.device):
-        stream = torch.cuda.current_stream(polys.device).cuda_stream
-        status = lib.clip_rect(polys.data_ptr(), rects.data_ptr(),
-                               area.data_ptr(), cent.data_ptr(), B, v0,
-                               stream)
-    _build.check(status, "clip_rect")
+    out = _launch("clip_rect", polys, rects, v0)
     clip_areas_centroids.launches += 1
-    return area, cent
+    return out
 
 
 clip_areas_centroids.launches = 0
+
+
+def clip_areas_centroids_poly(polys: torch.Tensor, clips: torch.Tensor):
+    """Convex-clip kernel wrapper.  polys (B, V0, 2) f32 with V0 in
+    ``KERNEL_V0``, clips (B, Vc, 2) f32 convex CCW rings with Vc in
+    ``KERNEL_VC`` (duplicate-padded), both recentred on the clip ring.
+    Returns (areas (B,), centroids (B, 2)) f32."""
+    B, v0 = polys.shape[0], polys.shape[1]
+    vc = clips.shape[1] if clips.dim() == 3 else 0
+    if (polys.dtype != torch.float32 or clips.dtype != torch.float32
+            or polys.shape != (B, v0, 2) or clips.shape != (B, vc, 2)
+            or v0 not in KERNEL_V0 or vc not in KERNEL_VC
+            or clips.device != polys.device):
+        raise ValueError(f"convex-clip kernel needs f32 polys (B, v0 in "
+                         f"{KERNEL_V0}, 2) and clips (B, vc in {KERNEL_VC}, "
+                         f"2) on one device, got {polys.dtype} "
+                         f"{tuple(polys.shape)} / {clips.dtype} "
+                         f"{tuple(clips.shape)}")
+    if on_cpu(polys, "clip_areas_centroids_poly"):
+        return clip_areas_centroids_poly_ref(polys, clips)
+    out = _launch("clip_poly", polys, clips, v0, vc)
+    clip_areas_centroids_poly.launches += 1
+    return out
+
+
+clip_areas_centroids_poly.launches = 0
+
+
+def _pad_ring(ring: np.ndarray, slots, what: str) -> np.ndarray:
+    """Pad (B, V, 2) rings to the next slot count in ``slots`` by repeating
+    their last vertex (a zero-length edge adds nothing)."""
+    v = next((k for k in slots if ring.shape[1] <= k), None)
+    if v is None:
+        raise ValueError(f"the clip kernels take at most {slots[-1]} "
+                         f"{what}, got {ring.shape[1]}")
+    if ring.shape[1] < v:
+        pad = np.repeat(ring[:, -1:, :], v - ring.shape[1], axis=1)
+        ring = np.concatenate([ring, pad], axis=1)
+    return ring
 
 
 def recentre_pairs(subj: np.ndarray, rect: np.ndarray):
     """Kernel inputs for world-coordinate pairs, as
     ``icebin_tpu/grid/exchange.py:557-562`` makes them: each pair is
     recentred on its rectangle in f64 and then cast to f32, so in-kernel
-    coordinates are O(cell size); rings pad to the next ``KERNEL_V0`` by
-    repeating their last vertex (a zero-length edge adds nothing).
+    coordinates are O(cell size); rings pad to the next ``KERNEL_V0``.
     Returns (polys (B, V0, 2) f32, rects (B, 4) f32, centres (B, 2) f64)."""
-    subj = np.asarray(subj, np.float64)
+    subj = _pad_ring(np.asarray(subj, np.float64), KERNEL_V0,
+                     "subject vertices (use subdiv <= 4)")
     rect = np.asarray(rect, np.float64)
-    v0 = next((k for k in KERNEL_V0 if subj.shape[1] <= k), None)
-    if v0 is None:
-        raise ValueError(f"the clip kernel takes <= {KERNEL_V0[-1]} subject "
-                         f"vertices (got {subj.shape[1]}); use subdiv <= 4")
-    if subj.shape[1] < v0:
-        pad = np.repeat(subj[:, -1:, :], v0 - subj.shape[1], axis=1)
-        subj = np.concatenate([subj, pad], axis=1)
     c = 0.5 * (rect[:, 0:2] + rect[:, 2:4])
     polys = (subj - c[:, None, :]).astype(np.float32)
     rects = (rect - np.concatenate([c, c], axis=1)).astype(np.float32)
     return polys, rects, c
 
 
-def make_clip_engine(*, device, chunk: int = 1 << 18):
-    """Returns fn(subj (B, V0, 2), rect (B, 4)) -> (areas, centroids), numpy
-    f64 in world coordinates: |area| per pair and its centroid.  Pairs are
-    recentred by ``recentre_pairs`` and clipped on ``device`` in chunks."""
+def recentre_poly_pairs(subj: np.ndarray, clip: np.ndarray):
+    """Convex-clip kernel inputs for world-coordinate pairs, as
+    ``icebin_tpu/grid/exchange.py:416-421`` makes them: each pair is
+    recentred in f64 on the mean of its clip ring's vertex slots and then
+    cast to f32; rings pad to the next ``KERNEL_V0`` / ``KERNEL_VC``.
+    Returns (polys (B, V0, 2) f32, clips (B, Vc, 2) f32, centres (B, 2)
+    f64)."""
+    subj = np.asarray(subj, np.float64)
+    clip = np.asarray(clip, np.float64)
+    c = clip.mean(axis=1)
+    polys = _pad_ring(subj - c[:, None, :], KERNEL_V0,
+                      "subject vertices (use subdiv <= 4)")
+    clips = _pad_ring(clip - c[:, None, :], KERNEL_VC, "clip vertices")
+    return polys.astype(np.float32), clips.astype(np.float32), c
+
+
+def _make_engine(recentre, kernel, device, chunk: int):
     device = torch.device(device)
 
-    def fn(subj: np.ndarray, rect: np.ndarray):
-        polys, rects, c = recentre_pairs(subj, rect)
+    def fn(subj: np.ndarray, other: np.ndarray):
+        polys, others, c = recentre(subj, other)
         B = polys.shape[0]
         areas = np.empty(B, np.float64)
         cents = np.empty((B, 2), np.float64)
         for s in range(0, B, chunk):
             e = min(s + chunk, B)
-            a, ctr = clip_areas_centroids(
-                torch.as_tensor(polys[s:e], device=device),
-                torch.as_tensor(rects[s:e], device=device))
+            a, ctr = kernel(torch.as_tensor(polys[s:e], device=device),
+                            torch.as_tensor(others[s:e], device=device))
             areas[s:e] = np.abs(a.cpu().numpy().astype(np.float64))
             cents[s:e] = ctr.cpu().numpy().astype(np.float64) + c[s:e]
         return areas, cents
 
     return fn
+
+
+def make_clip_engine(*, device, chunk: int = 1 << 18):
+    """Returns fn(subj (B, V0, 2), rect (B, 4)) -> (areas, centroids), numpy
+    f64 in world coordinates: |area| per pair and its centroid.  Pairs are
+    recentred by ``recentre_pairs`` and clipped on ``device`` in chunks."""
+    return _make_engine(recentre_pairs, clip_areas_centroids, device, chunk)
+
+
+def make_polyclip_engine(*, device, chunk: int = 1 << 18):
+    """Returns fn(subj (B, V0, 2), clip (B, Vc, 2)) -> (areas, centroids),
+    numpy f64 in world coordinates, for CONVEX CCW clip rings: |area| per
+    pair and its centroid.  Pairs are recentred by ``recentre_poly_pairs``
+    (V0 <= 16, Vc <= 8, as the reference's Pallas engine takes them) and
+    clipped on ``device`` in chunks."""
+    return _make_engine(recentre_poly_pairs, clip_areas_centroids_poly,
+                        device, chunk)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from icebin_tpu.grid.exchange import make_exchange_grid as shared_build
+from icebin_tpu.grid.proj import PlateCarree
 from icebin_tpu.grid.spec import GridSpecGeneric, GridSpecLonLat
 from icebin_tpu.oracle.clip import (clip_polys_rects, polygon_areas,
                                     polygon_centroids)
@@ -182,8 +183,9 @@ def test_host_build_and_clip_pairs_are_the_shared_stages():
 
 
 def test_exchange_dispatch():
-    """Separable pairs delegate to the shared exact builders; generic-polygon
-    ice grids need the convex-clip kernel, which is not ported yet."""
+    """Separable pairs delegate to the shared exact builders; a generic-
+    polygon ice grid builds through the convex clip, as the shared builder
+    does."""
     specA = GridSpecLonLat(lonb=np.linspace(0, 40, 5),
                            latb=np.linspace(30, 80, 6))
     specB = GridSpecLonLat(lonb=np.linspace(0, 40, 9),
@@ -193,6 +195,10 @@ def test_exchange_dispatch():
     np.testing.assert_array_equal(xg.iI, xo.iI)
     np.testing.assert_array_equal(xg.area, xo.area)
     gen = GridSpecGeneric(polygons=np.array([[[0, 30], [10, 30], [10, 40],
-                                              [0, 40]]], float))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_exchange_grid(specA, gen, device=CPU)
+                                              [0, 40]]], float),
+                          projection=PlateCarree(scale=25e3))
+    xg = make_exchange_grid(specA, gen, device=CPU)
+    xo = shared_build(specA, gen, engine="numpy")
+    np.testing.assert_array_equal(xg.iA, xo.iA)
+    np.testing.assert_allclose(xg.area_sums_I(), gen.plane_areas(),
+                               rtol=1e-12)

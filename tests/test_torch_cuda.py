@@ -9,7 +9,8 @@ suite's conftest:
 Tolerances: the spmm kernels and their plain version both sum in f64 and
 round once to f32, so they agree to one f32 ulp of the output; the clip
 kernel sums its compacted ring's shoelace in f64 where the plain version
-sums 16 * V0 slots in f32, so areas agree to 1e-5 of the ring's scale.
+sums 16 * V0 slots in f32, so areas agree to 1e-5 of the ring's scale; the
+convex-clip kernel likewise against V0 * 2**Vc slots.
 """
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ from icebin_tpu.regrid.sparse import WeightedMatrix
 from icebin_tpu_torch.ops.apply import (apply_ice, apply_small, spmm_dest_ice,
                                         spmm_dest_small, spmm_ref)
 from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
+                                       clip_areas_centroids_poly,
+                                       clip_areas_centroids_poly_ref,
                                        clip_areas_centroids_ref)
 from icebin_tpu_torch.ops.csr import csr_pack
 
@@ -130,6 +133,53 @@ def test_clip_kernel_nonconvex(cuda):
     np.testing.assert_allclose(a.cpu().numpy(), want, atol=1e-6)
 
 
+def comb_rings(rng, B, V):
+    """Combs of V // 4 teeth, rotated and scaled at random: a clip edge
+    through them crosses each tooth, so the clipped ring grows past the
+    subject's slots (to 15 and 25 vertices at V0 = 8 and 16).  No convex
+    clip reaches csrc/clip.cu's ring bound on every pass: after one pass
+    the crossing points lie on one line, which the next clip line meets
+    once.  The buffers are sized to the bound all the same."""
+    h = V // 2
+    t = np.linspace(-1.0, 1.0, h)
+    top = np.stack([t, np.where(np.arange(h) % 2, 1.2, -0.2)], -1)
+    ring = np.concatenate([np.stack([t[::-1], np.full(h, -1.3)], -1), top])
+    th = rng.uniform(0, 2 * np.pi, B)
+    c, s = np.cos(th)[:, None], np.sin(th)[:, None]
+    x, y = ring[None, :, 0], ring[None, :, 1]
+    k = rng.uniform(0.6, 1.4, (B, 1))
+    return np.stack([k * (c * x - s * y), k * (s * x + c * y)], -1)
+
+
+@pytest.mark.parametrize("Vc", [4, 8])
+@pytest.mark.parametrize("V0", [8, 16])
+def test_convex_clip_kernel_matches_plain(cuda, V0, Vc):
+    rng = np.random.default_rng(10 * V0 + Vc)
+    B = 4096
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (B, V0)), axis=1)
+    r = rng.uniform(0.2, 1.5, (B, 1))
+    polys = np.stack([r * np.cos(ang), r * np.sin(ang)], -1)
+    polys[::3, V0 // 2:] = polys[::3, V0 // 2 - 1:V0 // 2]   # padded
+    polys[1::2] = comb_rings(rng, B // 2, V0)
+    n = rng.integers(3, Vc + 1, B)            # clip rings of 3..Vc vertices
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (B, Vc)), axis=1)
+    slot = np.minimum(np.arange(Vc)[None, :], n[:, None] - 1)
+    ang = np.take_along_axis(ang, slot, axis=1)          # duplicate-padded
+    r = rng.uniform(0.5, 1.2, (B, 1))
+    clips = np.stack([r * np.cos(ang), r * np.sin(ang)], -1)
+    p = torch.as_tensor(polys, dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(clips, dtype=torch.float32, device=cuda)
+    n0 = clip_areas_centroids_poly.launches
+    a, c = clip_areas_centroids_poly(p, q)
+    assert clip_areas_centroids_poly.launches == n0 + 1
+    a_r, c_r = clip_areas_centroids_poly_ref(p, q)
+    torch.cuda.synchronize()
+    assert float((a - a_r).abs().max()) < 1e-5
+    big = a_r.abs() > 1e-2
+    assert float((c - c_r)[big].abs().max()) < 1e-4
+    assert torch.equal(a, clip_areas_centroids_poly(p, q)[0])
+
+
 def test_wrappers_raise_on_bad_cuda_operands(cuda):
     M = synth(seed=1)
     pack = csr_pack(M, nv=16, device=cuda)
@@ -141,3 +191,10 @@ def test_wrappers_raise_on_bad_cuda_operands(cuda):
     with pytest.raises(ValueError):
         clip_areas_centroids(torch.zeros((4, 12, 2), device=cuda),
                              torch.zeros((4, 4), device=cuda))
+    p = torch.zeros((4, 8, 2), device=cuda)
+    for q in (torch.zeros((4, 6, 2), device=cuda),           # Vc = 6
+              torch.zeros((4, 8, 2), device=cuda).double(),  # f64
+              torch.zeros((3, 8, 2), device=cuda),           # batch
+              torch.zeros((4, 8, 2))):                       # on the CPU
+        with pytest.raises(ValueError):
+            clip_areas_centroids_poly(p, q)

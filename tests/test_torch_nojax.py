@@ -39,6 +39,23 @@ for _ in range(2):
 rows = cp.ledger.to_rows()
 m = [abs(r["toy.mass_in_E"] - r["toy.mass_delivered_I"])
      / abs(r["toy.mass_in_E"]) for r in rows]
+# the generic-polygon build (convex clip) and the overlap CLI
+import contextlib, io, os, tempfile
+from icebin_tpu_torch.cli.overlap import main as overlap
+from icebin_tpu_torch.grid import GridSpecGeneric, make_exchange_grid
+from icebin_tpu_torch.io import read_exchange, write_grid
+hexes = GridSpecGeneric(polygons=[[[10.0 + 4 * np.cos(a), 50.0 + 4 * np.sin(a)]
+                                   for a in np.radians(np.arange(6) * 60.0)]],
+                        projection=PlateCarree(scale=s))
+xg = make_exchange_grid(specA, hexes, device=cpu)
+assert abs(xg.area_sums_I()[0] / hexes.plane_areas()[0] - 1) < 1e-12
+with tempfile.TemporaryDirectory() as d:
+    a, i, x = (os.path.join(d, f) for f in ("a.nc", "i.nc", "x.nc"))
+    write_grid(a, specA)
+    write_grid(i, specI)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert overlap([a, i, x, "--device", "cpu"]) == 0
+    assert read_exchange(x).ncells > 0
 print(len(rows), max(m), "jax" in sys.modules,
       sorted(k for k in sys.modules if k.split(".")[0] == "jax"))
 """
@@ -53,6 +70,8 @@ def _env():
 
 
 def test_port_imports_no_jax():
+    """A toy coupler, a generic-polygon exchange build and the overlap CLI
+    run in an interpreter that never imports JAX."""
     out = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
