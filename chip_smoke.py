@@ -17,11 +17,12 @@ Phases, each of which exits non-zero on failure:
 3. main    the main path, with every launch counter set to 0 just before
            it and read just after: exchange build, coupler construction,
            6 stepwise steps, one fused window.  The exchange grid must
-           match the shared f64 numpy builder and its column sums the cell
+           match the f64 numpy builder and its column sums the cell
            areas; every ledger row's transport identity must hold < 1e-10;
 4. spmm    the two regrid kernels on the real EvI/IvE/AvI/IvA at nv = 16
            against their plain version and the f64 scipy oracle (raw error
-           < 5e-7), and a repeat run bit-identical;
+           < 5e-7), and a repeat run bit-identical, timed beside cuSPARSE
+           (torch.sparse.mm) on the same matrices;
 5. profile torch.profiler over the steady steps before the next
            regeneration: device busy time per step, the device's idle
            share and the largest device operations;
@@ -35,11 +36,25 @@ Phases, each of which exits non-zero on failure:
            the convex-clip kernel against its plain version on every pair
            and a seeded sample against the f64 oracle, concave cells, the
            exchange grid's AvI/IvA through the regrid kernels, and the
-           overlap CLI against the in-process build.
+           overlap CLI against the in-process build;
+8. run     the standalone run CLI (icebin_tpu_torch.cli.run.main) at full
+           width on grid and exchange-grid files and a RunConfig with
+           checkpoints every 3 steps and per-step dumps: stepwise, --fused
+           and --ice dismal, each with the launch counters set to 0 just
+           before and read just after (transport identity < 1e-10, the
+           dumps and checkpoints on disk); then a checkpoint resumed
+           through the API, bit for bit the run that was not interrupted;
+9. roof    the stream-reduce kernel at 34 MB (inside the 50 MB L2) and
+           268 MB (from HBM) against its plain version and torch.sum, with
+           its launch counter set to 0 just before the timed runs.
 
-The last three lines are the kernels' JSON summary, the card's name and
-power limit (nvidia-smi), and {"ok": true, "device": {...}}.  Every timing
-line carries the card's name and power limit.
+The last three lines are the kernels' JSON summary (each kernel's launches
+on its path, error against its plain version, ms beside the plain
+version's, the one PyTorch call that computes the same function where there
+is one, and the least time the card could take: bytes over 3.35 TB/s or
+f32 operations over 67 TFLOP/s, the H100 SXM data sheet at 700 W), the
+card's name and power limit (nvidia-smi), and {"ok": true, "device":
+{...}}.  Every timing line carries the card's name and power limit.
 """
 import json
 import os
@@ -47,6 +62,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -58,6 +74,13 @@ TRANSPORT_TOL = 1e-10
 RAW_TOL = 5e-7            # tests/test_accuracy_contract.py's 6-pass bound
 COLSUM_TOL = 1e-12
 HEX_R = 3102.0            # hexagon circumradius, m: 25.0 km2 per cell
+# H100 SXM data sheet at 700 W: HBM rate and f32 rate outside the tensor
+# cores, for each kernel's least time (bound_ms)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+ROOF_SHAPES = ((2048, 32 * 128), (524288, 128))   # 34 MB and 268 MB f32
+SLEEP_CYCLES = 200_000_000   # ~0.1 s of the card's clock: longer than the
+                             # host takes to enqueue a timed run
 CARD = ""
 
 
@@ -85,18 +108,28 @@ def nvidia_smi():
 
 def time_ms(fn, reps):
     """Device time of one call of ``fn``, CUDA events over ``reps`` calls
-    after a warm-up."""
+    after a warm-up.  A sleep kernel queued first keeps the card busy while
+    the host enqueues the calls, so a kernel shorter than its launch is
+    timed on the device, not at the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes, nops):
+    """(least ms, what bounds it): bytes over the HBM rate or f32
+    operations over the f32 rate, whichever is larger."""
+    b, o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * nops / PEAK_F32_FLOP_S
+    return (b, "bytes") if b >= o else (o, "operations")
 
 
 def wall_ms(fn):
@@ -163,16 +196,30 @@ def phase_clip(specA, specI, device):
     check(err_c < 1e-4, f"clip centroids disagree ({err_c:.3e})")
     ms = time_ms(lambda: clip_areas_centroids(p, r), 20)
     plain_ms = time_ms(lambda: clip_areas_centroids_ref(p, r), 3)
-    say(f"clip: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
-        f"{len(pairA)} pairs")
+    bound_ms, bound_by = clip_bound(p, r)
+    say(f"clip: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}) per {len(pairA)} pairs; no single "
+        f"PyTorch call clips polygons")
     return {"pairs": len(pairA), "max_abs_err": abs_err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def clip_bound(polys, other):
+    """Least time of a clip kernel: its inputs read once, areas and
+    centroids written once; operations counted low (one distance per input
+    vertex and clip edge, and the shoelace's 6 per vertex), since the
+    bytes bound either way."""
+    B, v0 = polys.shape[0], polys.shape[1]
+    edges = 4 if other.dim() == 2 else other.shape[1]
+    return bound(4 * (polys[0].numel() + other[0].numel() + 3) * B,
+                 (edges + 6) * v0 * B)
 
 
 # -- phase 3: the main path ------------------------------------------------
 
 def compare_exchange(xg, xo, specI):
-    """Port exchange grid vs the shared f64 numpy builder: the same pairs
+    """Port exchange grid vs the f64 numpy builder: the same pairs
     except those within f32 noise of the min_area_frac cut."""
     areas = specI.cell_areas()
     col = xg.area_sums_I()
@@ -280,8 +327,7 @@ def phase_main(specA, specI, device, counters):
 
     xo, np_ms = wall_ms(lambda: make_exchange_grid_host(specA, specI,
                                                         subdiv=2))
-    say(f"shared numpy exchange build (host f64, for comparison) "
-        f"{np_ms:.1f} ms")
+    say(f"f64 numpy exchange build (host, for comparison) {np_ms:.1f} ms")
     compare_exchange(gr.sheets["greenland"].exchange, xo, specI)
     return cp, launches, float(np.median(plain))
 
@@ -291,7 +337,9 @@ def phase_main(specA, specI, device, counters):
 def check_spmm(kern, csr, A, w, tag, rng):
     """``kern`` on ``csr`` (the pack of sparse matrix ``A``, destination
     weights ``w``) at nv = 16 against its plain version and the f64 scipy
-    product; returns (max |kernel - plain|, kernel ms, plain ms)."""
+    product, timed beside cuSPARSE (``torch.sparse.mm`` on the CSR with
+    ``winv`` folded into its values, on the pre-cleaned field); returns
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}."""
     import torch
     from icebin_tpu_torch.ops.apply import spmm_ref
     device = csr.device
@@ -311,26 +359,45 @@ def check_spmm(kern, csr, A, w, tag, rng):
     ms = time_ms(lambda: kern(csr, xt), 50)
     plain_ms = time_ms(lambda: spmm_ref(csr, xt), 10)
     per_row = (csr.rowptr[1:] - csr.rowptr[:-1])
+    rows = torch.repeat_interleave(
+        torch.arange(csr.n_dst, device=device), per_row.long())
+    with warnings.catch_warnings():      # PyTorch's beta notice for CSR
+        warnings.simplefilter("ignore")
+        S = torch.sparse_csr_tensor(csr.rowptr.long(), csr.cols.long(),
+                                    csr.vals * csr.winv[rows],
+                                    size=(csr.n_dst, csr.n_src))
+    xc = torch.where(torch.isfinite(xt), xt, 0.0)
+    d_lib = (torch.sparse.mm(S, xc) - got).abs().max().item()
+    lib_ms = time_ms(lambda: torch.sparse.mm(S, xc), 50)
+    nnz, nv = csr.vals.numel(), xt.shape[1]
+    used = torch.unique(csr.cols).numel()
+    # rowptr, cols, vals, winv, the source rows the matrix reads and the
+    # whole output, each once; an add and a multiply per nonzero and field
+    bound_ms, bound_by = bound(
+        4 * (csr.n_dst + 1 + 2 * nnz + csr.n_dst)
+        + 4 * nv * (used + csr.n_dst), 2 * nnz * nv)
     say(f"{kern.__name__} {tag}: ({csr.n_src} x 16) -> ({csr.n_dst} x 16), "
         f"{csr.vals.numel()} nnz in {int((per_row > 0).sum())} live rows of "
         f"at most {int(per_row.max())}: raw error vs f64 oracle {raw:.3e} "
         f"(limit {RAW_TOL:g}), max |kernel - plain| {d_plain:.3e} (limit "
         f"1e-4), repeat bit-identical {ident}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
+        f"{plain_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms (max |kernel - "
+        f"cuSPARSE| {d_lib:.3e}), bound {bound_ms:.4f} ms ({bound_by})")
     check(raw < RAW_TOL, f"{tag} raw error {raw:.3e}")
     check(ident, f"{tag} repeat run is not bit-identical")
     check(d_plain < 1e-4, f"{tag} kernel vs plain {d_plain:.3e}")
-    return d_plain, ms, plain_ms
+    return {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def check_pack(M, pack, names, rng):
     """Both directions of ``pack`` (the pack of WeightedMatrix ``M``, rows
     the small side) through check_spmm; ``names`` tags (small <- ice,
-    ice <- small).  Returns {kernel name: [(tag, err, ms, plain_ms)]}."""
+    ice <- small).  Returns {kernel name: [(tag, check_spmm's dict)]}."""
     import scipy.sparse as sp
     from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
     S = sp.csr_matrix((M.vals, (M.rows, M.cols)), shape=M.shape)
-    return {kern.__name__: [(tag, *check_spmm(kern, csr, A, w, tag, rng))]
+    return {kern.__name__: [(tag, check_spmm(kern, csr, A, w, tag, rng))]
             for kern, csr, A, w, tag in (
                 (spmm_dest_small, pack.small, S, M.wM, names[0]),
                 (spmm_dest_ice, pack.ice, S.T.tocsr(), M.Mw, names[1]))}
@@ -586,12 +653,13 @@ def phase_polyclip(specA, specI, device, counters):
                           - a_o) / areas[p2c[pairI[idx]]])
     ms = time_ms(lambda: clip_areas_centroids_poly(p, q), 20)
     plain_ms = time_ms(lambda: clip_areas_centroids_poly_ref(p, q), 2)
+    bound_ms, bound_by = clip_bound(p, q)
     say(f"polyclip: convex-clip kernel on {len(pairA)} pairs at V0="
         f"{p.shape[1]}, Vc={q.shape[1]}: max |area - plain| / hexagon area "
         f"{err:.3e} (limit 1e-5), max |area - f64 oracle| / hexagon area "
         f"{err_o:.3e} on {len(idx)} seeded pairs (limit 1e-5); kernel "
-        f"{ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms")
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
     check(err < 1e-5, f"convex-clip kernel vs plain {err:.3e}")
     check(err_o < 1e-5, f"convex-clip kernel vs f64 oracle {err_o:.3e}")
 
@@ -602,7 +670,163 @@ def phase_polyclip(specA, specI, device, counters):
                np.random.default_rng(3))
     check_overlap_cli(specA, specI, device)
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "launches": launches["clip_areas_centroids_poly"]}
+
+
+# -- phase 8: the standalone run CLI at full width -------------------------
+
+def run_cli(cfg, flags, device, counters):
+    """``icebin_tpu_torch.cli.run.main`` on ``cfg`` in the config's
+    directory (where it writes its checkpoints), with the launch counters
+    set to 0 just before and read just after; returns (stdout lines, wall
+    ms, launches)."""
+    import contextlib
+    import io
+    from icebin_tpu_torch.cli.run import main as run_main
+    for k in counters:
+        k.launches = 0
+    cwd, buf = os.getcwd(), io.StringIO()
+    os.chdir(os.path.dirname(cfg))
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc, ms = wall_ms(lambda: run_main([cfg, "--device", str(device),
+                                               *flags]))
+    finally:
+        os.chdir(cwd)
+    check(rc == 0, f"run CLI {flags} returned {rc}")
+    return (buf.getvalue().strip().splitlines(), ms,
+            {k.__name__: k.launches for k in counters})
+
+
+def check_resume(gr, device):
+    """Through the API, with forcing fixed by the step: 3 steps, a
+    checkpoint, 3 more; the checkpoint loaded into a fresh coupler runs the
+    same 3 steps.  H, enth, t and every ledger row agree bit for bit (the
+    regeneration at step 3 rebuilds the matrices from the saved
+    elevmask)."""
+    import torch
+    from icebin_tpu_torch import CouplerConfig, GCMCoupler
+    from icebin_tpu_torch.coupler.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+
+    def fn(t, sheet):
+        return torch.as_tensor(forcing(gr.nE, seed=int(t // DT)),
+                               device=device)
+
+    cfg = CouplerConfig(dt=DT, regen_every=REGEN)
+    a = GCMCoupler(gr, cfg, device=device)
+    a.run_transient(fn, REGEN)
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "checkpoint.npz")
+        save_checkpoint(ck, a)
+        a.run_transient(fn, REGEN)
+        b = GCMCoupler(gr, cfg, device=device)
+        load_checkpoint(ck, b)
+        b.run_transient(fn, REGEN)
+    sa, sb = a.sheets["greenland"].state, b.sheets["greenland"].state
+    same = {k: bool(torch.equal(getattr(sa, k), getattr(sb, k)))
+            for k in ("H", "enth", "t")}
+    rows = a.ledger.to_rows() == b.ledger.to_rows()
+    say(f"run: resume from a checkpoint after step {REGEN}, {REGEN} more "
+        f"steps: bit for bit {same}, ledger rows {rows}")
+    check(all(same.values()) and rows, "resumed run is not bit-identical")
+
+
+def phase_run(specA, specI, xg, device, counters):
+    """Grid files and the exchange grid in a temporary directory, a
+    RunConfig with checkpoints and dumps, and the run CLI stepwise, --fused
+    and --ice dismal; then a bit-identical resume."""
+    from icebin_tpu_torch import GCMRegridder
+    from icebin_tpu_torch.io import write_exchange, write_grid
+    from icebin_tpu_torch.utils.config import RunConfig, SheetConfig
+    # dumps: every step, or each fused window's last step
+    modes = (("stepwise", [], 2 * REGEN), ("fused", ["--fused"], 2),
+             ("dismal", ["--ice", "dismal"], 2 * REGEN))
+    with tempfile.TemporaryDirectory() as d:
+        a, i, x = (os.path.join(d, f) for f in ("a.nc", "i.nc", "x.nc"))
+        write_grid(a, specA)
+        write_grid(i, specI)
+        write_exchange(x, xg)
+        for mode, flags, n_dumps in modes:
+            run_dir = os.path.join(d, mode)
+            os.mkdir(run_dir)
+            cfg = os.path.join(run_dir, "run.json")
+            RunConfig(gridA_file=a, hcdefs=HCDEFS, sheets=[SheetConfig(
+                name="greenland", grid_file=i, exchange_file=x)],
+                dt_seconds=DT, n_steps=2 * REGEN, regen_every=REGEN,
+                checkpoint_every=REGEN,
+                dump_dir=os.path.join(run_dir, "dumps")).to_json(cfg)
+            lines, ms, launches = run_cli(cfg, flags, device, counters)
+            worst = float(lines[-1].rsplit(" ", 1)[-1])
+            dumps = sorted(os.listdir(os.path.join(run_dir, "dumps")))
+            cks = [f"checkpoint_{k:06d}.npz" for k in (REGEN, 2 * REGEN)]
+            have = all(os.path.exists(os.path.join(run_dir, f)) for f in cks)
+            say(f"run CLI {mode}: {lines[-1]}; main() {ms:.1f} ms for "
+                f"{2 * REGEN} steps, {ms / (2 * REGEN):.1f} ms per step with "
+                f"the set-up (grid and exchange files, matrices), dumps and "
+                f"checkpoints; {len(dumps)} dumps, checkpoints {cks} "
+                f"{have}; launch counts {launches}")
+            check(worst < TRANSPORT_TOL, f"run CLI {mode}: transport "
+                                         f"conservation {worst:.3e}")
+            check(len(dumps) == n_dumps, f"run CLI {mode}: {len(dumps)} "
+                                         f"dumps, not {n_dumps}")
+            check(have, f"run CLI {mode}: missing checkpoints")
+            for name in ("spmm_dest_ice", "spmm_dest_small"):
+                check(launches[name] > 0, f"run CLI {mode} did not launch "
+                                          f"{name}")
+    gr = GCMRegridder(specA, HCDEFS, device=device)
+    gr.add_sheet("greenland", specI, exchange=xg, subdiv=2)
+    check_resume(gr, device)
+
+
+# -- phase 9: the stream-reduce kernel, the card's read rate ---------------
+
+def phase_roof(device):
+    """stream_reduce on seeded arrays of 34 MB (under the 50 MB L2) and
+    268 MB, timed with the launch counter set to 0 just before and read
+    just after, then held against its plain version and torch.sum."""
+    import torch
+    from icebin_tpu_torch.ops.roof import stream_reduce, stream_reduce_ref
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    arrays = [(torch.rand((R, W), generator=g, device=device) * 2 - 1,
+               torch.rand(W, generator=g, device=device))
+              for R, W in ROOF_SHAPES]
+    stream_reduce.launches = 0
+    times = [time_ms(lambda: stream_reduce(x, c), 50) for x, c in arrays]
+    launches = stream_reduce.launches
+    res = None
+    for (x, c), ms in zip(arrays, times):
+        y, again = stream_reduce(x, c), stream_reduce(x, c)
+        plain = stream_reduce_ref(x, c)
+        torch.cuda.synchronize()
+        err = ((y.double() - plain.double()).abs()
+               / x.abs().double().sum(0)).max().item()
+        ident = bool(torch.equal(y, again))
+        plain_ms = time_ms(lambda: stream_reduce_ref(x, c), 50)
+        lib_ms = time_ms(lambda: torch.sum(x, 0), 50)
+        nbytes = 4 * (x.numel() + 2 * x.shape[1])
+        bound_ms, bound_by = bound(nbytes, x.numel())
+        where = ("fits in the 50 MB L2: an L2 rate" if nbytes < 50e6
+                 else "streams from HBM: the read roof")
+        say(f"roof: stream_reduce {tuple(x.shape)} f32, {nbytes / 1e6:.1f} "
+            f"MB ({where}): kernel {ms:.4f} ms = {nbytes / ms / 1e6:.1f} "
+            f"GB/s, torch.sum {lib_ms:.4f} ms = {nbytes / lib_ms / 1e6:.1f} "
+            f"GB/s, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {PEAK_BYTES_S / 1e12:g} TB/s); max |kernel - "
+            f"plain| / sum |x| {err:.3e} (limit 1e-5), rerun bit-identical "
+            f"{ident}")
+        check(err < 1e-5, f"stream_reduce vs plain {err:.3e}")
+        check(ident, "stream_reduce rerun is not bit-identical")
+        # the JSON row keeps the last array's: 268 MB, the HBM read roof
+        res = {"max_abs_err": (y - plain).abs().max().item(), "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+    say(f"roof: launch count in the timed runs {launches}")
+    check(launches > 0, "stream_reduce was not launched")
+    res["launches"] = launches
+    return res
 
 
 def main():
@@ -640,30 +864,42 @@ def main():
     phase_toy(device)
     poly = phase_polyclip(specA, specI, device,
                           counters + (clip_areas_centroids_poly,))
-    check("jax" not in sys.modules, "JAX was imported")
+    phase_run(specA, specI, cp.gr.sheets["greenland"].exchange, device,
+              counters)
+    roof = phase_roof(device)
+    for mod in ("jax", "icebin_tpu"):
+        check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]
+    launches["stream_reduce"] = roof["launches"]
 
-    def row(name, source, replaces, err, ms, plain_ms):
+    def row(name, source, replaces, res):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
 
-    # timings at the main path's hot shapes: IvE (K1) and EvI (K2)
-    ice = dict((t[0], t) for t in spmm["spmm_dest_ice"])["IvE"]
-    small = dict((t[0], t) for t in spmm["spmm_dest_small"])["EvI"]
+    # timings at the main path's hot shapes: IvE (K1) and EvI (K2); the
+    # error is the worst of both matrices
+    def spmm_row(name, tag):
+        res = dict(spmm[name])[tag]
+        return dict(res, max_abs_err=max(r["max_abs_err"]
+                                         for _, r in spmm[name]))
+
     kernels = [
         row("spmm_dest_ice", "icebin_tpu_torch/csrc/spmm.cu",
             "icebin_tpu/ops/pallas_bdt.py:903",
-            max(t[1] for t in spmm["spmm_dest_ice"]), ice[2], ice[3]),
+            spmm_row("spmm_dest_ice", "IvE")),
         row("spmm_dest_small", "icebin_tpu_torch/csrc/spmm.cu",
             "icebin_tpu/ops/pallas_bdt.py:807",
-            max(t[1] for t in spmm["spmm_dest_small"]), small[2], small[3]),
+            spmm_row("spmm_dest_small", "EvI")),
         row("clip_areas_centroids", "icebin_tpu_torch/csrc/clip.cu",
-            "icebin_tpu/ops/pallas_clip.py:142", clip["max_abs_err"],
-            clip["ms"], clip["plain_ms"]),
+            "icebin_tpu/ops/pallas_clip.py:142", clip),
         row("clip_areas_centroids_poly", "icebin_tpu_torch/csrc/clip.cu",
-            "icebin_tpu/ops/pallas_clip.py:120", poly["max_abs_err"],
-            poly["ms"], poly["plain_ms"]),
+            "icebin_tpu/ops/pallas_clip.py:120", poly),
+        row("stream_reduce", "icebin_tpu_torch/csrc/roof.cu",
+            "tools/bench_roof.py:58 and tools/probe_stream_scale.py:40",
+            roof),
     ]
     print(json.dumps({"kernels": kernels}))
     print(CARD)

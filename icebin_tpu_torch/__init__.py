@@ -1,19 +1,28 @@
-"""icebin_tpu_torch: the PyTorch + CUDA port of icebin_tpu's coupled main
-path, for NVIDIA Hopper (H100).
+"""icebin_tpu_torch: the PyTorch + CUDA port of icebin_tpu, for NVIDIA
+Hopper (H100).
 
-``icebin_tpu`` (JAX) stays the reference.  This package imports its host
-layer (grids, exchange-grid stages, matrix factories, unit contracts,
-E1vE0), none of which imports JAX, and re-implements on ``torch`` every
-module that does: the regrid applies, the f64 ledger, the SIA ice model,
-the coupler and the exchange-grid clip.  The three Pallas kernels on that
-path are hand-written CUDA in ``csrc/`` (built at first use by
-``icebin_tpu_torch.ops._build``).  Layout mirrors the reference:
+``icebin_tpu`` (JAX) stays the reference.  This package imports nothing of
+it: the host layer it needs (grids and projections, the exchange-grid
+stages, the sparse-matrix and matrix factories, the smoother, the NetCDF
+and zarray files, unit contracts, E1vE0) is its own numpy copy of the
+reference's modules, under the same relative paths and bit-identical, and
+every module that runs on JAX is re-implemented on ``torch``: the regrid
+applies, the f64 ledger, the SIA and DISMAL ice models, the coupler with
+its writer and checkpoints, the exchange-grid clip and the ``overlap`` and
+``run`` CLIs.  The Pallas kernels on those paths are hand-written CUDA in
+``csrc/`` (built at first use by ``icebin_tpu_torch.ops._build``).  Layout
+mirrors the reference:
 
-    ops/       csr pack, applies (dest-small/dest-ice kernels), clip kernel
-    coupler/   ledger, coupler
-    models/    ice_sheet
-    grid/      exchange (clip through the kernel)
-    regrid/    gcmregridder (sheets built through grid/exchange)
+    ops/       csr pack, applies (dest-small/dest-ice kernels), clip
+               kernels, stream-reduce kernel (roof), smoother
+    coupler/   ledger, coupler, writer, checkpoint, units, varset, e1ve0
+    models/    ice_sheet, dismal
+    grid/      proj, spec, decompose, exchange (clip through the kernels)
+    regrid/    sparse, hntr, matrices, gcmregridder
+    io/        ncio, zarray
+    oracle/    clip (the f64 numpy clip)
+    utils/     indexing, config (RunConfig)
+    cli/       overlap, run
     convert    ice state to and from the reference's arrays
 
 Every constructor takes an explicit ``device``; functions on tensors run

@@ -4,8 +4,7 @@ The reference's ``IceSheetState`` holds ``H``, ``bed``, ``t`` and ``enth``;
 any object with those attributes (a reference state, or a namespace of
 numpy arrays) converts to the port's state, and the port's state converts
 back to a dict of numpy arrays that the reference's constructor takes
-(``IceSheetState(**d)``).  Regrid matrices need no conversion: both
-packages use the same host ``WeightedMatrix`` objects.
+(``IceSheetState(**d)``).
 """
 from __future__ import annotations
 

@@ -5,8 +5,8 @@ with fused unit conversion -> f64 mass repair of the extensive fields ->
 SIA ice step (mass and enthalpy columns) -> EvI/AvI harvest, each repaired
 -> a 15-entry f64 ledger row.  Every ``regen_every`` steps the matrices are
 rebuilt from the evolved surface and GCM-held EC state is remapped through
-E1vE0.  Matrix construction, E1vE0 and unit contracts are the reference's
-host modules, imported from ``icebin_tpu``.
+E1vE0.  Matrix construction, E1vE0 and unit contracts are the port's own
+copies of the reference's host modules.
 
 Differences from the reference:
 
@@ -16,7 +16,11 @@ Differences from the reference:
   accepted and ignored: the kernels always sum in f64.
 * Mass and energy books (mfac, ledger sums) are always f64.
 * PyTorch runs eagerly, so ``couple_window`` is a plain loop over
-  ``_couple_core`` and ``couple`` needs no jit cache.
+  ``_couple_core`` and ``couple`` needs no jit cache.  Which models a
+  fused run takes window by window is still the reference's rule (the SIA
+  step, or a model marked ``jittable``; any other runs stepwise), so the
+  two packages dump and checkpoint on the same steps.
+* Fields reach the writer through ``.cpu().numpy()``.
 """
 from __future__ import annotations
 
@@ -27,19 +31,19 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from icebin_tpu.coupler.e1ve0 import e1ve0_matrix
-from icebin_tpu.coupler.varset import (VarSet, ice_modele_output_contract,
-                                       ice_native_input_contract,
-                                       modele_ice_input_contract)
-from icebin_tpu.regrid.gcmregridder import GCMRegridder
-from icebin_tpu.regrid.matrices import RegridMatrices, RegridParams
-
+from icebin_tpu_torch.coupler.e1ve0 import e1ve0_matrix
 from icebin_tpu_torch.coupler.ledger import Ledger, repair_mass, weighted_mass
+from icebin_tpu_torch.coupler.varset import (VarSet,
+                                             ice_modele_output_contract,
+                                             ice_native_input_contract,
+                                             modele_ice_input_contract)
 from icebin_tpu_torch.models.ice_sheet import (RHO_ICE, IceFluxes,
                                                IceSheetConfig, IceSheetState,
                                                init_state, step_coupled)
 from icebin_tpu_torch.ops.apply import apply_view
 from icebin_tpu_torch.ops.csr import csr_view_pair
+from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
+from icebin_tpu_torch.regrid.matrices import RegridMatrices, RegridParams
 
 __all__ = ["CouplerConfig", "IceSheetCoupler", "GCMCoupler"]
 
@@ -392,7 +396,9 @@ class GCMCoupler:
     """Multi-sheet coupling driver over a regridder, on ``device``."""
 
     def __init__(self, gr: GCMRegridder, cfg: CouplerConfig = CouplerConfig(),
-                 *, device, sheets: Optional[Dict[str, IceSheetCoupler]] = None):
+                 *, device,
+                 sheets: Optional[Dict[str, IceSheetCoupler]] = None,
+                 writer=None):
         self.gr = gr
         self.cfg = cfg
         self.device = torch.device(device)
@@ -401,7 +407,21 @@ class GCMCoupler:
                       for name in gr.sheets}
         self.sheets = sheets
         self.ledger = Ledger()
+        #: optional ``CouplerWriter`` for per-step field dumps
+        self.writer = writer
         self.time = 0.0
+
+    def _dump(self, fE_in: Dict[str, torch.Tensor], results) -> None:
+        """One writer dump of every sheet's forcing and outputs, with the
+        latest ledger row (the reference's fields and names)."""
+        fields = {}
+        for name, r in results.items():
+            fields[f"{name}.fE_in"] = fE_in[name]
+            for key in ("fI", "fE_out", "fA_out"):
+                fields[f"{name}.{key}"] = r[key]
+        self.writer.dump(self.time, {k: v.detach().cpu().numpy()
+                                     for k, v in fields.items()},
+                         self.ledger.to_rows()[-1])
 
     def couple(self, gcm_ovalsE: Dict[str, torch.Tensor]):
         """One coupling step for every sheet; gcm_ovalsE maps sheet name ->
@@ -409,6 +429,8 @@ class GCMCoupler:
         self.ledger.open_step(self.time)
         results = {name: sc.couple(self.time, gcm_ovalsE[name], self.ledger)
                    for name, sc in self.sheets.items()}
+        if self.writer is not None:
+            self._dump(gcm_ovalsE, results)
         self.time += self.cfg.dt
         return results
 
@@ -417,8 +439,14 @@ class GCMCoupler:
         """N-step transient loop, conservation booked per step.
         forcing_fn(t, sheet) -> (n_in, nE) tensor.  ``fused=True`` runs each
         regeneration window through ``couple_window`` (one host sync per
-        window); ledger rows, regeneration and E1vE0 are the same."""
-        if not fused:
+        window); ledger rows, regeneration and E1vE0 are the same, and the
+        writer dumps each window's last step.  A sheet whose ice model the
+        reference cannot fuse (neither the SIA step nor marked
+        ``jittable``) runs the whole transient stepwise, as there."""
+        fusible = all(sc.ice_step is step_coupled
+                      or getattr(sc.ice_step, "jittable", False)
+                      for sc in self.sheets.values())
+        if not (fused and fusible):
             out = None
             for _ in range(n_steps):
                 out = self.couple({name: forcing_fn(self.time, name)
@@ -435,10 +463,11 @@ class GCMCoupler:
                            *(sc.cfg.regen_every - sc.steps_since_regen
                              for sc in self.sheets.values())))
             t0 = self.time
-            stats, results = {}, {}
+            stats, results, fE_last = {}, {}, {}
             for name, sc in self.sheets.items():
                 fE_seq = torch.stack([forcing_fn(t0 + i * cfg.dt, name)
                                       for i in range(k)])
+                fE_last[name] = fE_seq[-1]
                 stats[name], results[name] = sc.couple_window(fE_seq)
             for i in range(k):
                 self.ledger.open_step(t0 + i * cfg.dt)
@@ -451,4 +480,6 @@ class GCMCoupler:
                 results[name]["E1vE0"] = sc._regen_if_due(self.ledger)
                 results[name]["fhc"] = sc.rm.fhc()
                 results[name]["elevE"] = sc.rm.elevE()
+            if self.writer is not None:
+                self._dump(fE_last, results)
         return results

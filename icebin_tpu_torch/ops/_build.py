@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``icebin_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface, which
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and the
+objects are linked into ONE shared library with a plain C interface, which
 is loaded through ``ctypes``.  No PyTorch header is included, so the build
 takes seconds.  It runs at first use, into ``build/icebin_tpu_torch/<hash>``
 at the repository root, keyed by a hash of the sources and flags; a later
@@ -25,8 +26,9 @@ __all__ = ["library", "build", "build_log", "check"]
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "icebin_tpu_torch"
 LIB_NAME = "libicebin_tpu_torch.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signature of every entry point: (argtypes, restype)
@@ -35,6 +37,7 @@ _SIGNATURES = {
     "spmm_dest_ice": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "clip_rect": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
     "clip_poly": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
+    "stream_reduce": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
     "icebin_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -71,14 +74,39 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-6000:]}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in _sources()]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for obj, src in zip(objs, _sources())]
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    link = [nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)]
+    log = []
+
+    def run(cmds):
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        try:
+            outs = [p.communicate()[0] for p in procs]
+        finally:
+            for p in procs:            # leave no compiler running
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        log.extend(" ".join(c) + "\n" + out for c, out in zip(cmds, outs))
+        for p, out in zip(procs, outs):
+            if p.returncode != 0:
+                (out_dir / "build.log").write_text("".join(log))
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{out[-6000:]}")
+
+    try:
+        run(jobs)                  # one nvcc per source, in parallel
+        run([link])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("".join(log))
     os.replace(tmp, lib)           # atomic: concurrent builders agree
     return lib
 

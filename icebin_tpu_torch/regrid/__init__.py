@@ -1,5 +1,6 @@
-"""Regridder whose sheets build through the port, and the reference's
-sparse-matrix class (numpy, no JAX), re-exported for the port's users."""
-from icebin_tpu.regrid.sparse import WeightedMatrix
+"""Regridder, matrix factories and the sparse-matrix class: the port's own
+copies of the reference's host modules (numpy), with the regridder's
+exchange grids built through the port's clip kernels."""
+from icebin_tpu_torch.regrid.sparse import WeightedMatrix
 
 __all__ = ["WeightedMatrix"]

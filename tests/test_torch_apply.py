@@ -26,6 +26,7 @@ from icebin_tpu_torch.ops.apply import (apply_ice, apply_ice_ref,
                                         apply_view, spmm_dest_ice,
                                         spmm_dest_small, spmm_ref)
 from icebin_tpu_torch.ops.csr import csr_pack, csr_view_pair
+from icebin_tpu_torch.regrid.sparse import WeightedMatrix as PortMatrix
 
 from helpers import toy_elevmask, toy_regridder
 
@@ -60,6 +61,12 @@ def synth(nx=256, ny=24, ratio=16, nhc=3, seed=0):
                           shape=(nA * nhc, nI))
 
 
+def to_port(M):
+    """The port's own WeightedMatrix of a reference one, from the same
+    numbers (the two packages' classes are distinct)."""
+    return PortMatrix(rows=M.rows, cols=M.cols, vals=M.vals, shape=M.shape)
+
+
 def rel_err(got, want, scale=None):
     """Max |got - want| over ``scale`` (default |want|): the magnitude the
     f32 rounding of each output is relative to."""
@@ -92,7 +99,7 @@ def test_applies_match_reference(nv, nvar):
     the pack width (wider inputs run in nv-wide groups)."""
     M = synth(seed=7)
     pm = ref.pallas_from_weighted(M, small_axis="rows", nv=nv)
-    pack = csr_pack(M, small_axis="rows", nv=nv, device=CPU)
+    pack = csr_pack(to_port(M), small_axis="rows", nv=nv, device=CPU)
     for got, want in both_directions(M, pm, pack, nvar, seed=nv + nvar):
         assert got.shape == want.shape
         assert rel_err(got, want) < TOL
@@ -105,7 +112,7 @@ def test_unscaled_and_overflow_pack():
     pm = ref.pallas_from_weighted(M, small_axis="rows", nv=8,
                                   max_tiles_per_block=2)
     assert pm.ov_s is not None and pm.ov_s.size > 0
-    pack = csr_pack(M, small_axis="rows", nv=8, device=CPU)
+    pack = csr_pack(to_port(M), small_axis="rows", nv=8, device=CPU)
     for scale in (True, False):
         for got, want in both_directions(M, pm, pack, 8, seed=3,
                                          scale=scale):
@@ -121,7 +128,7 @@ def test_apply_view_fill_and_unit_conversion():
     M = WeightedMatrix(rows=M.rows[keep], cols=M.cols[keep],
                        vals=M.vals[keep], shape=M.shape)
     vj_f, vj_r = ref.pallas_view_pair(M, small_axis="rows", nv=16)
-    vt_f, vt_r = csr_view_pair(M, nv=16, device=CPU)
+    vt_f, vt_r = csr_view_pair(to_port(M), nv=16, device=CPU)
     rng = np.random.default_rng(4)
     fac = rng.uniform(0.5, 2.0, 4)
     off = rng.uniform(-5.0, 5.0, 4)
@@ -169,7 +176,7 @@ def test_wide_sparse_e_space():
     M = WeightedMatrix(rows=rows, cols=cols, vals=vals, shape=(n_s, n_i))
     pm = ref.pallas_from_weighted(M, small_axis="rows", nv=8, e_sec=512)
     assert pm.nesec == 2
-    pack = csr_pack(M, small_axis="rows", nv=8, device=CPU)
+    pack = csr_pack(to_port(M), small_axis="rows", nv=8, device=CPU)
     for got, want in both_directions(M, pm, pack, 8, seed=1):
         assert rel_err(got, want) < TOL
 
@@ -181,7 +188,7 @@ def test_raw_accuracy_contract_vs_f64_oracle():
     gr = toy_regridder(nI=(96, 96))
     rm = gr.regrid_matrices("toy", toy_elevmask(gr.sheets["toy"].specI))
     Me = rm.matrix("EvI", RegridParams(scale=True, correctA=True))
-    pack = csr_pack(Me, small_axis="rows", nv=16, device=CPU)
+    pack = csr_pack(to_port(Me), small_axis="rows", nv=16, device=CPU)
     rng = np.random.default_rng(0)
     S = sp.coo_matrix((Me.vals, (Me.rows, Me.cols)), shape=Me.shape).tocsr()
     for x, Md, w, apply in ((260.0 + rng.uniform(0, 30, (16, Me.shape[1])),
@@ -199,7 +206,7 @@ def test_plain_versions_and_wrapper_checks():
     """apply_*_ref are the plain versions the CPU wrappers run (equal
     results); the kernel wrappers reject what the kernels do not take."""
     M = synth(seed=2)
-    pack = csr_pack(M, small_axis="rows", nv=8, device=CPU)
+    pack = csr_pack(to_port(M), small_axis="rows", nv=8, device=CPU)
     f = torch.as_tensor(np.random.default_rng(0).uniform(
         0.5, 1.5, (8, M.shape[1])), dtype=torch.float32)
     assert torch.equal(apply_small(pack, f), apply_small_ref(pack, f))

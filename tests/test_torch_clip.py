@@ -1,6 +1,6 @@
 """Port's exchange-grid clip (icebin_tpu_torch.ops.clip, grid.exchange) vs
 the reference's Pallas clip kernel (interpret mode on the CPU), the f64
-oracle (icebin_tpu.oracle.clip) and the shared numpy exchange builder, on
+oracle (icebin_tpu.oracle.clip) and the reference's numpy exchange builder, on
 the same seeded inputs.
 
 Tolerances: the port's clip and the Pallas kernel both run in f32 on
@@ -9,6 +9,8 @@ ring's scale (2e-5 absolute, the reference suite's own bound in
 tests/test_clip.py); centroids of slivers divide by 6*area and amplify f32
 noise, so they are compared where the area is meaningful.
 """
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -23,6 +25,7 @@ from icebin_tpu.ops.pallas_clip import clip_areas_centroids_pallas
 
 from icebin_tpu_torch.grid import (clip_pairs, make_exchange_grid,
                                    make_exchange_grid_host)
+from icebin_tpu_torch.grid import proj as port_proj, spec as port_spec
 from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                        clip_areas_centroids_ref,
                                        make_clip_engine)
@@ -36,6 +39,17 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 AREA_ATOL = 2e-5
 CENT_ATOL = 1e-3
+
+
+def to_port(spec):
+    """The port's own class for a reference grid spec, built from the same
+    numbers (the two packages' classes are distinct)."""
+    kw = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    p = kw.get("projection")
+    if p is not None:
+        kw["projection"] = getattr(port_proj, type(p).__name__)(
+            **{f.name: getattr(p, f.name) for f in dataclasses.fields(p)})
+    return getattr(port_spec, type(spec).__name__)(**kw)
 
 
 def pad_poly(pts, V):
@@ -152,7 +166,8 @@ def test_exchange_grid_matches_shared_numpy_builder():
     """End to end on toy_grids: same overlap pairs, areas within f32 noise
     of the f64 builder, column sums exact after the f64 repair."""
     specA, specI = toy_grids(nI=(40, 40), nA=(8, 10))
-    xg = make_exchange_grid(specA, specI, subdiv=1, device=CPU)
+    xg = make_exchange_grid(to_port(specA), to_port(specI), subdiv=1,
+                            device=CPU)
     xo = shared_build(specA, specI, subdiv=1, engine="numpy")
     np.testing.assert_array_equal(xg.iA, xo.iA)
     np.testing.assert_array_equal(xg.iI, xo.iI)
@@ -164,16 +179,17 @@ def test_exchange_grid_matches_shared_numpy_builder():
 
 
 def test_host_build_and_clip_pairs_are_the_shared_stages():
-    """make_exchange_grid_host is the shared f64 numpy build, and clip_pairs
-    hands the clip the shared candidate pairs with their rings and ice
-    rectangles."""
+    """make_exchange_grid_host is the reference's f64 numpy build bit for
+    bit, and clip_pairs hands the clip the reference's candidate pairs with
+    their rings and ice rectangles."""
     from icebin_tpu.grid import exchange as shared
     specA, specI = toy_grids(nI=(24, 24), nA=(6, 8))
-    xh = make_exchange_grid_host(specA, specI, subdiv=1)
+    xh = make_exchange_grid_host(to_port(specA), to_port(specI), subdiv=1)
     xo = shared_build(specA, specI, subdiv=1, engine="numpy")
     for k in ("iA", "iI", "area"):
         np.testing.assert_array_equal(getattr(xh, k), getattr(xo, k))
-    pairA, pairI, subj, rect = clip_pairs(specA, specI, subdiv=1)
+    pairA, pairI, subj, rect = clip_pairs(to_port(specA), to_port(specI),
+                                          subdiv=1)
     polysA, keepA = shared.prepare_subject_polygons(specA, specI, subdiv=1)
     wantA, wantI = shared.candidate_pairs(specA, specI, polysA, keepA)
     np.testing.assert_array_equal(pairA, wantA)
@@ -183,21 +199,21 @@ def test_host_build_and_clip_pairs_are_the_shared_stages():
 
 
 def test_exchange_dispatch():
-    """Separable pairs delegate to the shared exact builders; a generic-
-    polygon ice grid builds through the convex clip, as the shared builder
-    does."""
+    """Separable pairs go to the exact builders, as in the reference; a
+    generic-polygon ice grid builds through the convex clip, as the
+    reference's builder does."""
     specA = GridSpecLonLat(lonb=np.linspace(0, 40, 5),
                            latb=np.linspace(30, 80, 6))
     specB = GridSpecLonLat(lonb=np.linspace(0, 40, 9),
                            latb=np.linspace(30, 80, 11))
-    xg = make_exchange_grid(specA, specB, device=CPU)
+    xg = make_exchange_grid(to_port(specA), to_port(specB), device=CPU)
     xo = shared_build(specA, specB, engine="numpy")
     np.testing.assert_array_equal(xg.iI, xo.iI)
     np.testing.assert_array_equal(xg.area, xo.area)
     gen = GridSpecGeneric(polygons=np.array([[[0, 30], [10, 30], [10, 40],
                                               [0, 40]]], float),
                           projection=PlateCarree(scale=25e3))
-    xg = make_exchange_grid(specA, gen, device=CPU)
+    xg = make_exchange_grid(to_port(specA), to_port(gen), device=CPU)
     xo = shared_build(specA, gen, engine="numpy")
     np.testing.assert_array_equal(xg.iA, xo.iA)
     np.testing.assert_allclose(xg.area_sums_I(), gen.plane_areas(),

@@ -22,12 +22,12 @@ import pytest
 import torch
 
 from icebin_tpu.coupler import coupler as ref_coupler
-from icebin_tpu.grid.proj import PlateCarree
-from icebin_tpu.grid.spec import GridSpecLonLat, GridSpecXY
+from icebin_tpu.grid import proj as ref_proj, spec as ref_spec
 from icebin_tpu.models.ice_sheet import IceSheetState as RefState
 from icebin_tpu.regrid.gcmregridder import GCMRegridder as RefRegridder
 
 import icebin_tpu_torch as port
+from icebin_tpu_torch.grid import proj as port_proj, spec as port_spec
 from icebin_tpu_torch.convert import state_from_reference, state_to_arrays
 
 # the suite runs in parallel worker processes: one intra-op thread each
@@ -43,20 +43,23 @@ N_STEPS = 6
 REGEN = 3
 
 
-def toy_specs(n_ice=40):
+def toy_specs(spec=port_spec, proj=port_proj, n_ice=40):
     """tests/test_coupler.py make_coupler's metric toy: PlateCarree scaled
     to ~25 km/deg so the ice plane, the matrix measure and the SIA model
-    share one metre-based geometry."""
-    specA = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
-                           latb=np.linspace(30.0, 80.0, 7))
-    specI = GridSpecXY(xb=np.linspace(0.0, 40.0 * SCALE, n_ice + 1),
-                       yb=np.linspace(30.0 * SCALE, 80.0 * SCALE, n_ice + 1),
-                       projection=PlateCarree(scale=SCALE))
+    share one metre-based geometry.  ``spec``/``proj`` are the grid modules
+    of the package that gets the grids (each side builds its own classes
+    from the same numbers)."""
+    specA = spec.GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                                latb=np.linspace(30.0, 80.0, 7))
+    specI = spec.GridSpecXY(
+        xb=np.linspace(0.0, 40.0 * SCALE, n_ice + 1),
+        yb=np.linspace(30.0 * SCALE, 80.0 * SCALE, n_ice + 1),
+        projection=proj.PlateCarree(scale=SCALE))
     return specA, specI
 
 
 def make_ref(regen_every=REGEN):
-    specA, specI = toy_specs()
+    specA, specI = toy_specs(ref_spec, ref_proj)
     gr = RefRegridder(specA, hcdefs=HCDEFS)
     gr.add_sheet("toy", specI, subdiv=1, engine="numpy")
     cfg = ref_coupler.CouplerConfig(dt=86400.0 * 30, regen_every=regen_every)

@@ -10,13 +10,14 @@ Tolerances: the spmm kernels and their plain version both sum in f64 and
 round once to f32, so they agree to one f32 ulp of the output; the clip
 kernel sums its compacted ring's shoelace in f64 where the plain version
 sums 16 * V0 slots in f32, so areas agree to 1e-5 of the ring's scale; the
-convex-clip kernel likewise against V0 * 2**Vc slots.
+convex-clip kernel likewise against V0 * 2**Vc slots; the stream-reduce
+kernel sums in f64 where its plain version sums in f32, so they agree to
+1e-5 of sum |x|; a resumed coupler is bit for bit the one that was not
+interrupted (no float atomics anywhere in a step).
 """
 import numpy as np
 import pytest
 import torch
-
-from icebin_tpu.regrid.sparse import WeightedMatrix
 
 from icebin_tpu_torch.ops.apply import (apply_ice, apply_small, spmm_dest_ice,
                                         spmm_dest_small, spmm_ref)
@@ -25,6 +26,8 @@ from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                        clip_areas_centroids_poly_ref,
                                        clip_areas_centroids_ref)
 from icebin_tpu_torch.ops.csr import csr_pack
+from icebin_tpu_torch.ops.roof import stream_reduce, stream_reduce_ref
+from icebin_tpu_torch.regrid.sparse import WeightedMatrix
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +201,75 @@ def test_wrappers_raise_on_bad_cuda_operands(cuda):
               torch.zeros((4, 8, 2))):                       # on the CPU
         with pytest.raises(ValueError):
             clip_areas_centroids_poly(p, q)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (37, 132), (2048, 4096),
+                                   (100003, 128)])
+def test_stream_reduce_matches_plain(cuda, shape):
+    """Odd row counts, a ragged column tile, the probe's (R, 32 x 128) and
+    bench_roof's (R, 128) layouts; reruns bit-identical."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(shape[0])
+    x = torch.rand(shape, generator=g, device=cuda) * 2 - 1
+    c = torch.rand(shape[1], generator=g, device=cuda)
+    n0 = stream_reduce.launches
+    y = stream_reduce(x, c)
+    assert stream_reduce.launches == n0 + 1
+    want = stream_reduce_ref(x, c)
+    torch.cuda.synchronize()
+    scale = x.abs().sum(0) + c.abs()
+    assert float(((y - want).abs() / scale).max()) < 1e-5
+    assert torch.equal(y, stream_reduce(x, c))
+    assert torch.equal(stream_reduce(x), stream_reduce(x, torch.zeros_like(c)))
+    with pytest.raises(ValueError):
+        stream_reduce(x[:, :3].contiguous())              # W % 4 != 0
+    with pytest.raises(ValueError):
+        stream_reduce(x.t())                              # not contiguous
+    with pytest.raises(ValueError):
+        stream_reduce(x, c.cpu())                         # c elsewhere
+
+
+def test_resume_is_bit_identical_on_the_card(cuda, tmp_path):
+    """A toy coupler on the card: 3 steps, a checkpoint, 3 more; the
+    checkpoint loaded into a fresh coupler runs the same 3 steps to the
+    same state and ledger bit for bit."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.coupler.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    from icebin_tpu_torch.grid import GridSpecLonLat, GridSpecXY, PlateCarree
+    s = 25e3
+    specA = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                           latb=np.linspace(30.0, 80.0, 7))
+    specI = GridSpecXY(xb=np.linspace(0.0, 40.0 * s, 41),
+                       yb=np.linspace(30.0 * s, 80.0 * s, 41),
+                       projection=PlateCarree(scale=s))
+
+    def make():
+        gr = port.GCMRegridder(specA, [0.0, 500.0, 1000.0, 2000.0],
+                               device=cuda)
+        gr.add_sheet("toy", specI, subdiv=1)
+        return port.GCMCoupler(gr, port.CouplerConfig(regen_every=2),
+                               device=cuda)
+
+    def fn(t, sheet):
+        rng = np.random.default_rng(int(t) % 100003)
+        f = np.zeros((8, nE), np.float32)
+        f[0] = 1e-5 * rng.uniform(0.5, 1.0, nE)
+        f[1] = 5.0
+        f[4] = -10.0
+        return torch.as_tensor(f, device=cuda)
+
+    a = make()
+    nE = a.gr.nE
+    a.run_transient(fn, 3)
+    ck = str(tmp_path / "ck.npz")
+    save_checkpoint(ck, a)
+    a.run_transient(fn, 3)
+    b = make()
+    load_checkpoint(ck, b)
+    assert b.sheets["toy"].state.H.device == a.sheets["toy"].state.H.device
+    b.run_transient(fn, 3)
+    for k in ("H", "enth", "t"):
+        assert torch.equal(getattr(a.sheets["toy"].state, k),
+                           getattr(b.sheets["toy"].state, k)), k
+    assert a.ledger.to_rows() == b.ledger.to_rows()

@@ -1,5 +1,7 @@
-"""The port runs without JAX; chip_smoke.py imports only the port and refuses
-to run without a GPU.
+"""The port runs without JAX and without the reference package: no module
+of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
+coupler, the overlap CLI and the run CLI; chip_smoke.py imports only the
+port and refuses to run without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
 process has JAX loaded by the suite's conftest.
@@ -56,8 +58,24 @@ with tempfile.TemporaryDirectory() as d:
     with contextlib.redirect_stdout(io.StringIO()):
         assert overlap([a, i, x, "--device", "cpu"]) == 0
     assert read_exchange(x).ncells > 0
+    # the run CLI: stepwise with checkpoints, then resumed, fused
+    from icebin_tpu_torch.cli.run import main as run
+    from icebin_tpu_torch.utils.config import RunConfig, SheetConfig
+    cfg = os.path.join(d, "run.json")
+    RunConfig(gridA_file=a, hcdefs=[0.0, 1000.0], n_steps=2,
+              sheets=[SheetConfig(name="toy", grid_file=i, exchange_file=x)],
+              regen_every=1, checkpoint_every=1,
+              dump_dir=os.path.join(d, "dumps")).to_json(cfg)
+    os.chdir(d)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert run([cfg, "--device", "cpu"]) == 0
+        assert run([cfg, "--device", "cpu", "--fused",
+                    "--resume", "checkpoint_000001.npz"]) == 0
+    assert len(os.listdir(os.path.join(d, "dumps"))) == 2
+    os.chdir(os.path.dirname(d))
 print(len(rows), max(m), "jax" in sys.modules,
-      sorted(k for k in sys.modules if k.split(".")[0] == "jax"))
+      sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "icebin_tpu")))
 """
 
 
@@ -70,8 +88,9 @@ def _env():
 
 
 def test_port_imports_no_jax():
-    """A toy coupler, a generic-polygon exchange build and the overlap CLI
-    run in an interpreter that never imports JAX."""
+    """A toy coupler, a generic-polygon exchange build, the overlap CLI and
+    the run CLI run in an interpreter that never imports JAX nor the
+    reference package."""
     out = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
@@ -80,18 +99,37 @@ def test_port_imports_no_jax():
     assert n == "2"
     assert float(worst) < 1e-10
     assert has_jax == "False", mods
+    assert mods.strip() == "[]", mods
+
+
+def _imports(path):
+    """Every module a Python file imports (absolute names; a relative
+    import counts as the port's own)."""
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+def test_port_source_imports_nothing_of_the_reference():
+    """No file of icebin_tpu_torch imports icebin_tpu or JAX, at any level
+    of the file (top, function, conditional)."""
+    files = sorted((ROOT / "icebin_tpu_torch").rglob("*.py"))
+    assert len(files) > 30
+    bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f)
+                                            if m.split(".")[0] in
+                                            ("icebin_tpu", "jax", "jaxlib"))
+           for f in files}
+    assert not {f: m for f, m in bad.items() if m}
 
 
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the system only through icebin_tpu_torch: it
     imports neither JAX nor the reference package."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    mods = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            mods.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            mods.add(node.module)
+    mods = _imports(ROOT / "chip_smoke.py")
     tops = {m.split(".")[0] for m in mods}
     assert "icebin_tpu_torch" in tops
     assert not tops & {"icebin_tpu", "jax", "jaxlib"}, sorted(mods)

@@ -1,8 +1,9 @@
 """Port's generic-polygon exchange build (icebin_tpu_torch.ops.clip's convex
 clip, grid.exchange's polyclip stages, cli.overlap) vs the reference's
 convex clip (its Pallas kernel in interpret mode on the CPU, and its XLA
-twin), the f64 oracle (icebin_tpu.oracle.clip), the shared exchange
-builder and the reference CLI, on the same seeded inputs.
+twin), the f64 oracle (icebin_tpu.oracle.clip), the reference's exchange
+builder and the reference CLI, on the same seeded inputs (each package
+builds its own grid classes from the same numbers).
 
 The Pallas kernel runs here at 4 clip slots only.  At 8 it compiles for
 20-31 s per shape and runs 3-8 s per 128-pair tile on about four cores;
@@ -41,10 +42,10 @@ import pytest
 import torch
 
 from icebin_tpu.cli.overlap import main as ref_overlap
+from icebin_tpu.grid import proj as ref_proj, spec as ref_spec
 from icebin_tpu.grid.exchange import make_exchange_grid as shared_build
 from icebin_tpu.grid.proj import PlateCarree
-from icebin_tpu.grid.spec import (Grid, GridSpecGeneric, GridSpecLonLat,
-                                  GridSpecXY)
+from icebin_tpu.grid.spec import Grid, GridSpecLonLat, GridSpecXY
 from icebin_tpu.io.ncio import read_exchange, write_grid
 from icebin_tpu.ops.clip import clip_areas_centroids_poly as ref_xla
 from icebin_tpu.oracle.clip import (clip_polys_polys, polygon_areas,
@@ -54,6 +55,7 @@ from icebin_tpu.ops.pallas_clip import clip_areas_centroids_poly_pallas
 from icebin_tpu_torch.cli.overlap import main as port_overlap
 from icebin_tpu_torch.grid import (assemble_polyclip, clip_poly_host,
                                    make_exchange_grid, polyclip_pairs)
+from icebin_tpu_torch.grid import proj as port_proj, spec as port_spec
 from icebin_tpu_torch.ops.clip import (clip_areas_centroids_poly,
                                        clip_areas_centroids_poly_ref,
                                        make_polyclip_engine)
@@ -219,56 +221,58 @@ def _centers(x0, x1, y0, y1, step):
                     axis=-1).reshape(-1, 2)
 
 
-def case(name):
+def case(name, port=False):
     """(specA, specI, subdiv, repair) of the generic case ``name``, built as
-    the reference test at the cited line builds it."""
-    pc = PlateCarree
+    the reference test at the cited line builds it, from the reference's
+    classes or (``port``) from the port's own, out of the same numbers."""
+    S, P = (port_spec, port_proj) if port else (ref_spec, ref_proj)
+    pc = P.PlateCarree
     if name == "generic_x_xy":                     # :172
         rng = np.random.default_rng(3)
         c = _centers(9.0, 31.0, 43.0, 67.0, 3.2)
         c = c + rng.uniform(-0.3, 0.3, c.shape)
-        return (GridSpecGeneric(polygons=_hex_polygons(c, r=1.2)),
-                GridSpecXY(xb=np.linspace(0.0, 40.0 * 25e3, 65),
+        return (S.GridSpecGeneric(polygons=_hex_polygons(c, r=1.2)),
+                S.GridSpecXY(xb=np.linspace(0.0, 40.0 * 25e3, 65),
                            yb=np.linspace(30.0 * 25e3, 80.0 * 25e3, 81),
                            projection=pc(scale=25e3)), 2, False)
     if name == "triangles_x_xy":                   # :201
-        return (GridSpecGeneric(polygons=_tri_grid(10.0, 22.0, 40.0, 52.0,
+        return (S.GridSpecGeneric(polygons=_tri_grid(10.0, 22.0, 40.0, 52.0,
                                                    6)),
-                GridSpecXY(xb=np.linspace(12.0 * 10e3, 20.0 * 10e3, 17),
+                S.GridSpecXY(xb=np.linspace(12.0 * 10e3, 20.0 * 10e3, 17),
                            yb=np.linspace(42.0 * 10e3, 50.0 * 10e3, 17),
                            projection=pc(scale=10e3)), 2, True)
-    tris = GridSpecGeneric(polygons=_tri_grid(10.0, 22.0, 40.0, 52.0, 8))
+    tris = S.GridSpecGeneric(polygons=_tri_grid(10.0, 22.0, 40.0, 52.0, 8))
     c = _centers(13.0, 19.1, 43.0, 49.1, 2.0)
     if name == "hex_clip":                         # :270 and :356
-        return (tris, GridSpecGeneric(polygons=_hex_polygons(c, r=0.8),
+        return (tris, S.GridSpecGeneric(polygons=_hex_polygons(c, r=0.8),
                                       projection=pc(scale=10e3)), 2, False)
     if name == "quad_clip":                        # :295-302
         ang = np.radians([45.0, 135.0, 225.0, 315.0])
         quads = np.stack([c[:, None, 0] + 0.9 * np.cos(ang)[None, :],
                           c[:, None, 1] + 0.9 * np.sin(ang)[None, :]], -1)
-        return (tris, GridSpecGeneric(polygons=quads,
+        return (tris, S.GridSpecGeneric(polygons=quads,
                                       projection=pc(scale=10e3)), 2, False)
     if name == "concave":                          # :310
         L = [[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [1.0, 1.0], [1.0, 3.0],
              [0.0, 3.0]]
         arrow = [[5.0, 0.0], [7.0, 1.0], [9.0, 0.0], [7.0, 3.0],
                  [7.0, 3.0], [7.0, 3.0]]
-        return (GridSpecGeneric(polygons=_tri_grid(-1.0, 10.0, -1.0, 4.0,
+        return (S.GridSpecGeneric(polygons=_tri_grid(-1.0, 10.0, -1.0, 4.0,
                                                    12)),
-                GridSpecGeneric(polygons=np.asarray([L, arrow]),
+                S.GridSpecGeneric(polygons=np.asarray([L, arrow]),
                                 projection=pc(scale=1e3)), 2, False)
     if name == "lonlat_x_generic":                 # :374
-        return (GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 11),
+        return (S.GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 11),
                                latb=np.linspace(35.0, 75.0, 11)),
-                GridSpecGeneric(polygons=_hex_polygons(
+                S.GridSpecGeneric(polygons=_hex_polygons(
                     _centers(12.0, 28.1, 45.0, 61.1, 3.0), r=1.0),
                     projection=pc(scale=25e3)), 4, True)
     if name == "pad_corner":                       # :391
         L = np.asarray([[[1.0, 3.0], [0.0, 3.0], [0.0, 0.0], [3.0, 0.0],
                          [3.0, 1.0], [1.0, 1.0], [1.0, 1.0], [1.0, 1.0]]])
-        return (GridSpecGeneric(polygons=_tri_grid(-1.0, 4.0, -1.0, 4.0,
+        return (S.GridSpecGeneric(polygons=_tri_grid(-1.0, 4.0, -1.0, 4.0,
                                                    10)),
-                GridSpecGeneric(polygons=L, projection=pc(scale=1e3)), 2,
+                S.GridSpecGeneric(polygons=L, projection=pc(scale=1e3)), 2,
                 False)
     raise KeyError(name)
 
@@ -289,8 +293,8 @@ def test_exchange_matches_shared_builder(name):
     column sums and totals within the reference tests' bounds, and no
     duplicate (iA, iI) pair."""
     specA, specI, subdiv, repair = case(name)
-    xg = make_exchange_grid(specA, specI, subdiv=subdiv, device=CPU,
-                            repair=repair)
+    pA, pI, _, _ = case(name, port=True)
+    xg = make_exchange_grid(pA, pI, subdiv=subdiv, device=CPU, repair=repair)
     key = xg.iA * np.int64(xg.nI) + xg.iI
     assert len(np.unique(key)) == len(key)
     cell = (specI.cell_areas() if isinstance(specI, GridSpecXY)
@@ -321,14 +325,14 @@ def test_exchange_matches_shared_builder(name):
 @pytest.mark.parametrize("name", CLIP_CASES)
 def test_polyclip_stages_are_the_reference_build(name):
     """polyclip_pairs + the f64 oracle clip + assemble_polyclip rebuild the
-    shared numpy builder's exchange grid bit for bit: the port's pairing
+    reference's numpy builder's exchange grid bit for bit: the port's pairing
     and piece aggregation are the reference's."""
     specA, specI, subdiv, repair = case(name)
-    pairA, pairI, subj, clip, piece2cell = polyclip_pairs(specA, specI,
-                                                          subdiv)
+    pA, pI, _, _ = case(name, port=True)
+    pairA, pairI, subj, clip, piece2cell = polyclip_pairs(pA, pI, subdiv)
     areas, cents = clip_poly_host(subj, clip)
-    xg = assemble_polyclip(pairA, pairI, areas, cents, piece2cell, specA,
-                           specI, repair=repair)
+    xg = assemble_polyclip(pairA, pairI, areas, cents, piece2cell, pA, pI,
+                           repair=repair)
     xo = shared_build(specA, specI, subdiv=subdiv, engine="numpy",
                       repair=repair)
     for k in ("iA", "iI", "area", "centroid"):
@@ -340,10 +344,13 @@ def test_masked_grids_match_shared_builder():
     builder applies them: no overlap of a masked cell, and the same
     measures as the f64 numpy build."""
     specA, specI, subdiv, _ = case("hex_clip")
+    pA, pI, _, _ = case("hex_clip", port=True)
     rng = np.random.default_rng(5)
     gA = Grid(specA, mask=rng.uniform(size=specA.ncells) > 0.3)
     gI = Grid(specI, mask=rng.uniform(size=specI.ncells) > 0.3)
-    xg = make_exchange_grid(gA, gI, subdiv=subdiv, device=CPU, repair=False)
+    xg = make_exchange_grid(port_spec.Grid(pA, mask=gA.mask),
+                            port_spec.Grid(pI, mask=gI.mask), subdiv=subdiv,
+                            device=CPU, repair=False)
     xo = shared_build(gA, gI, subdiv=subdiv, engine="numpy", repair=False)
     assert gA.mask[xg.iA].all() and gI.mask[xg.iI].all()
     np.testing.assert_array_equal(xg.iA, xo.iA)
