@@ -8,7 +8,9 @@ stereographic cells) x ModelE 2x2.5 (144 x 90, 5 elevation classes) system
 that bench.py drives: the exchange grid is built through the clip kernel,
 then a GCMCoupler runs 6 stepwise coupling steps in bench.py's production
 mode (deferred ledger) with a matrix regeneration (and an E1vE0 remap of
-GCM-held state) every 3, then one fused window.
+GCM-held state) every 3, then one fused window.  Phases 10 and 11 add
+Antarctica 5 km (config #5) and drive both sheets through the ModelE C
+ABI.
 Phases, each of which exits non-zero on failure:
 
 1. build   every kernel of csrc/ with nvcc for sm_90a;
@@ -46,7 +48,26 @@ Phases, each of which exits non-zero on failure:
            through the API, bit for bit the run that was not interrupted;
 9. roof    the stream-reduce kernel at 34 MB (inside the 50 MB L2) and
            268 MB (from HBM) against its plain version and torch.sum, with
-           its launch counter set to 0 just before the timed runs.
+           its launch counter set to 0 just before the timed runs;
+10. multisheet  BASELINE config #5 as bench.py:413-496 builds it:
+           Antarctica 5 km (1120 x 1120 south polar stereographic cells)
+           beside Greenland under one ModelE regridder.  The clip kernel
+           against its plain version on all of Antarctica's pairs; its
+           exchange build with the launch counters set to 0 just before
+           and read just after, against the f64 host build; one
+           GCMCoupler on both sheets (6 stepwise steps, deferred ledger,
+           then a fused window, counters likewise); steps/s as bench.py
+           measures them (each sheet alone, then both); Antarctica's
+           EvI/IvE/AvI/IvA through the regrid kernels at nv = 16 and 64;
+11. modele the port's gcmce_* C ABI through ctypes on config #5's files:
+           two steps of forcing in ModelE's layout from two 'ranks', the
+           TOPO buffers, ledger rows and ice state bit for bit the
+           directly driven coupler's, and the regrid kernels' launches
+           counted around each gcmce_couple_native call alone;
+12. floors the stream-only floors beside the regrid kernels on both
+           sheets' EvI/IvE, and the tile product at Greenland and
+           Antarctica depth beside its plain version and torch.bmm, their
+           counters set to 0 just before the timed runs.
 
 The last three lines are the kernels' JSON summary (each kernel's launches
 on its path, error against its plain version, ms beside the plain
@@ -79,6 +100,12 @@ HEX_R = 3102.0            # hexagon circumradius, m: 25.0 km2 per cell
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 ROOF_SHAPES = ((2048, 32 * 128), (524288, 128))   # 34 MB and 268 MB f32
+ANTARCTICA = "+proj=stere +lat_0=-90 +lat_ts=-71 +lon_0=0 +ellps=WGS84"
+ANT_R = 2800e3            # bench.py:101-113's half-width: 1120 x 1120 at 5 km
+SHEETS = ("greenland", "antarctica")
+MS_N1, MS_N2 = 16, 48     # steps of the two-point steps/s, as bench.py
+PRODS_ROWS = (2048, 15360)   # tools/probe_prods_scale.py: 44 and 330 MB
+PRODS_TOL = 130 * 2.0 ** -24  # f32 FMA chain of 128 terms, of sum |T * F|
 SLEEP_CYCLES = 200_000_000   # ~0.1 s of the card's clock: longer than the
                              # host takes to enqueue a timed run
 CARD = ""
@@ -166,7 +193,7 @@ def forcing(nE, seed=0):
 
 # -- phase 2: the clip kernel against its plain version --------------------
 
-def phase_clip(specA, specI, device):
+def phase_clip(specA, specI, device, tag="clip"):
     import torch
     from icebin_tpu_torch.grid import clip_pairs
     from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
@@ -186,7 +213,7 @@ def phase_clip(specA, specI, device):
     h = torch.maximum(r[:, 2], r[:, 3])[:, None]
     err_c = ((c - c_ref).abs() / h)[pos].max().item()
     abs_err = (a - a_ref).abs().max().item()             # m2
-    say(f"clip: {len(pairA)} pairs at V0={p.shape[1]}, max |area - plain| / "
+    say(f"{tag}: {len(pairA)} pairs at V0={p.shape[1]}, max |area - plain| / "
         f"cell area {err_a:.3e} (limit 1e-5), max |centroid - plain| / half "
         f"extent {err_c:.3e} (limit 1e-4, area > 1% of the cell)")
     # the plain version sums its 128-slot shoelace in f32, the kernel its
@@ -197,7 +224,7 @@ def phase_clip(specA, specI, device):
     ms = time_ms(lambda: clip_areas_centroids(p, r), 20)
     plain_ms = time_ms(lambda: clip_areas_centroids_ref(p, r), 3)
     bound_ms, bound_by = clip_bound(p, r)
-    say(f"clip: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    say(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}) per {len(pairA)} pairs; no single "
         f"PyTorch call clips polygons")
     return {"pairs": len(pairA), "max_abs_err": abs_err, "ms": ms,
@@ -218,13 +245,13 @@ def clip_bound(polys, other):
 
 # -- phase 3: the main path ------------------------------------------------
 
-def compare_exchange(xg, xo, specI):
+def compare_exchange(xg, xo, specI, tag="exchange"):
     """Port exchange grid vs the f64 numpy builder: the same pairs
     except those within f32 noise of the min_area_frac cut."""
     areas = specI.cell_areas()
     col = xg.area_sums_I()
     rel = np.abs(col - areas) / areas
-    say(f"exchange: {xg.ncells} overlaps, max |column sum - cell area| / "
+    say(f"{tag}: {xg.ncells} overlaps, max |column sum - cell area| / "
         f"cell area {rel.max():.3e} (limit {COLSUM_TOL:g})")
     check(rel.max() < COLSUM_TOL, f"column sums off by {rel.max():.3e}")
     kg = xg.iA.astype(np.int64) * xg.nI + xg.iI
@@ -243,7 +270,7 @@ def compare_exchange(xg, xo, specI):
     common_o = oo[np.isin(ko[oo], kg)]
     d = (np.abs(xg.area[common_g] - xo.area[common_o])
          / areas[xg.iI[common_g]])
-    say(f"exchange vs numpy builder: {len(common_g)} common pairs, "
+    say(f"{tag} vs numpy builder: {len(common_g)} common pairs, "
         f"{only_g.sum()} port-only and {only_o.sum()} numpy-only pairs "
         f"below {noise:g} of their cell, max |area diff| / cell area "
         f"{d.max():.3e} (limit {noise:g})")
@@ -334,16 +361,27 @@ def phase_main(specA, specI, device, counters):
 
 # -- phase 4: the regrid kernels on the real matrices ----------------------
 
-def check_spmm(kern, csr, A, w, tag, rng):
+def spmm_bound(csr, nv):
+    """Least time of one apply of ``csr`` to nv fields: rowptr, cols, vals,
+    winv, the source rows the matrix reads and the whole output, each once;
+    two operations per nonzero and field."""
+    import torch
+    nnz = csr.vals.numel()
+    used = torch.unique(csr.cols).numel()
+    return bound(4 * (csr.n_dst + 1 + 2 * nnz + csr.n_dst)
+                 + 4 * nv * (used + csr.n_dst), 2 * nnz * nv)
+
+
+def check_spmm(kern, csr, A, w, tag, rng, nv=16):
     """``kern`` on ``csr`` (the pack of sparse matrix ``A``, destination
-    weights ``w``) at nv = 16 against its plain version and the f64 scipy
-    product, timed beside cuSPARSE (``torch.sparse.mm`` on the CSR with
-    ``winv`` folded into its values, on the pre-cleaned field); returns
-    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    weights ``w``) at ``nv`` fields against its plain version and the f64
+    scipy product, timed beside cuSPARSE (``torch.sparse.mm`` on the CSR
+    with ``winv`` folded into its values, on the pre-cleaned field);
+    returns {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}."""
     import torch
     from icebin_tpu_torch.ops.apply import spmm_ref
     device = csr.device
-    x = (260.0 + 30.0 * rng.uniform(size=(csr.n_src, 16))).astype(np.float32)
+    x = (260.0 + 30.0 * rng.uniform(size=(csr.n_src, nv))).astype(np.float32)
     xt = torch.as_tensor(x, device=device)
     got = kern(csr, xt)
     again = kern(csr, xt)
@@ -369,14 +407,9 @@ def check_spmm(kern, csr, A, w, tag, rng):
     xc = torch.where(torch.isfinite(xt), xt, 0.0)
     d_lib = (torch.sparse.mm(S, xc) - got).abs().max().item()
     lib_ms = time_ms(lambda: torch.sparse.mm(S, xc), 50)
-    nnz, nv = csr.vals.numel(), xt.shape[1]
-    used = torch.unique(csr.cols).numel()
-    # rowptr, cols, vals, winv, the source rows the matrix reads and the
-    # whole output, each once; an add and a multiply per nonzero and field
-    bound_ms, bound_by = bound(
-        4 * (csr.n_dst + 1 + 2 * nnz + csr.n_dst)
-        + 4 * nv * (used + csr.n_dst), 2 * nnz * nv)
-    say(f"{kern.__name__} {tag}: ({csr.n_src} x 16) -> ({csr.n_dst} x 16), "
+    bound_ms, bound_by = spmm_bound(csr, nv)
+    say(f"{kern.__name__} {tag}: ({csr.n_src} x {nv}) -> ({csr.n_dst} x "
+        f"{nv}), "
         f"{csr.vals.numel()} nnz in {int((per_row > 0).sum())} live rows of "
         f"at most {int(per_row.max())}: raw error vs f64 oracle {raw:.3e} "
         f"(limit {RAW_TOL:g}), max |kernel - plain| {d_plain:.3e} (limit "
@@ -390,14 +423,15 @@ def check_spmm(kern, csr, A, w, tag, rng):
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_pack(M, pack, names, rng):
+def check_pack(M, pack, names, rng, nv=16):
     """Both directions of ``pack`` (the pack of WeightedMatrix ``M``, rows
-    the small side) through check_spmm; ``names`` tags (small <- ice,
-    ice <- small).  Returns {kernel name: [(tag, check_spmm's dict)]}."""
+    the small side) through check_spmm at ``nv`` fields; ``names`` tags
+    (small <- ice, ice <- small).  Returns {kernel name: [(tag,
+    check_spmm's dict)]}."""
     import scipy.sparse as sp
     from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
     S = sp.csr_matrix((M.vals, (M.rows, M.cols)), shape=M.shape)
-    return {kern.__name__: [(tag, check_spmm(kern, csr, A, w, tag, rng))]
+    return {kern.__name__: [(tag, check_spmm(kern, csr, A, w, tag, rng, nv))]
             for kern, csr, A, w, tag in (
                 (spmm_dest_small, pack.small, S, M.wM, names[0]),
                 (spmm_dest_ice, pack.ice, S.T.tocsr(), M.Mw, names[1]))}
@@ -417,15 +451,17 @@ def phase_spmm(cp):
 
 # -- phase 5: where a coupler step's time goes -----------------------------
 
-def phase_profile(cp, step_ms, device):
-    """torch.profiler over the steps left before the next regeneration:
-    device busy time per step is the sum of every kernel, copy and fill
-    the profiler traced on the card (one stream, so they do not overlap);
-    the idle share is taken against the unprofiled step time of phase 3."""
+def phase_profile(cp, step_ms, device, n=None, tag="profile"):
+    """torch.profiler over ``n`` steady steps of every sheet of ``cp`` (by
+    default the steps left before the next regeneration): device busy time
+    per step is the sum of every kernel, copy and fill the profiler traced
+    on the card (one stream, so they do not overlap); the idle share is
+    taken against the unprofiled step time ``step_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    sc = cp.sheets["greenland"]
-    n = REGEN - 1 - sc.steps_since_regen
+    if n is None:
+        n = min(REGEN - 1 - sc.steps_since_regen
+                for sc in cp.sheets.values())
     check(n >= 1, "no steady step left before the next regeneration")
     fE = [torch.as_tensor(forcing(cp.gr.nE, seed=10 + k), device=device)
           for k in range(n)]
@@ -434,13 +470,13 @@ def phase_profile(cp, step_ms, device):
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for f in fE:
-            cp.couple({"greenland": f})
+            cp.couple({name: f for name in cp.sheets})
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t) / n
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        say(f"profile: {n} steps, {prof_ms:.3f} ms per step under the "
+        say(f"{tag}: {n} steps, {prof_ms:.3f} ms per step under the "
             f"profiler; device time not measured (no device event traced)")
         return
     busy_ms = 1e-3 * sum(e.time_range.elapsed_us() for e in dev) / n
@@ -448,14 +484,14 @@ def phase_profile(cp, step_ms, device):
     for e in dev:
         us, k = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
-    say(f"profile: {n} steady steps, {prof_ms:.3f} ms per step under the "
-        f"profiler ({step_ms:.3f} ms without it, phase 3); device busy "
-        f"{busy_ms:.3f} ms per step in {len(dev) / n:.0f} device operations, "
-        f"so the device is idle {100 * (1 - busy_ms / step_ms):.1f}% of an "
-        f"unprofiled step")
+    say(f"{tag}: {n} steady steps of {sorted(cp.sheets)}, {prof_ms:.3f} ms "
+        f"per step under the profiler ({step_ms:.3f} ms without it); device "
+        f"busy {busy_ms:.3f} ms per step in {len(dev) / n:.0f} device "
+        f"operations, so the device is idle "
+        f"{100 * (1 - busy_ms / step_ms):.1f}% of an unprofiled step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     for name, (us, k) in top:
-        say(f"profile:   {us / n:9.1f} us per step in {k / n:5.1f} calls: "
+        say(f"{tag}:   {us / n:9.1f} us per step in {k / n:5.1f} calls: "
             f"{name[:70]}")
 
 
@@ -829,6 +865,381 @@ def phase_roof(device):
     return res
 
 
+# -- phase 10: BASELINE config #5, Greenland + Antarctica on one A grid ----
+
+def antarctica_spec(res_km=5.0):
+    """bench.py:101-113's config #5 lattice: 1120 x 1120 cells of 5 km over
+    [-2800, 2800] km in the south polar stereographic plane."""
+    from icebin_tpu_torch.grid import GridSpecXY
+    n = int(round(2 * ANT_R / (res_km * 1e3)))
+    b = np.linspace(-ANT_R, ANT_R, n + 1)
+    return GridSpecXY(xb=b, yb=b, projection=ANTARCTICA,
+                      name=f"antarctica_{res_km:g}km")
+
+
+def check_ledger(rows, sheets, what):
+    """Every row's transport identity, mass and energy, for every sheet."""
+    worst = 0.0
+    for r in rows:
+        for name in sheets:
+            for book in ("mass", "energy"):
+                a = r[f"{name}.{book}_in_E"]
+                b = r[f"{name}.{book}_delivered_I"]
+                check(np.isfinite(a) and abs(a) > 0,
+                      f"{what}: {name} {book}_in_E is {a}")
+                worst = max(worst, abs(a - b) / abs(a))
+    say(f"{what}: {len(rows)} ledger rows of {len(sheets)} sheets, max "
+        f"|in_E - delivered_I| / |in_E| {worst:.3e} (mass and energy; limit "
+        f"{TRANSPORT_TOL:g})")
+    check(worst < TRANSPORT_TOL, f"{what}: transport identity {worst:.3e}")
+
+
+def multisheet_rates(gr, cfg, device):
+    """Steps/s as bench.py:454-483 measures them: a coupler of both sheets
+    that never regenerates, sub-couplers sharing its sheet objects for each
+    sheet alone, one forcing for both; per configuration a warm loop, then
+    the two-point difference of the fastest of 3 loops of MS_N1 and of
+    MS_N2 steps, each loop ending in the deferred ledger's flush; the
+    spread is the range of the 3 pairs' own differences.  The timed rows
+    must keep the transport identity."""
+    import dataclasses
+    import torch
+    from icebin_tpu_torch import GCMCoupler
+    tcfg = dataclasses.replace(cfg, regen_every=1 << 30)
+    both = GCMCoupler(gr, tcfg, device=device)
+    fE = torch.as_tensor(forcing(gr.nE, seed=30), device=device)
+
+    def run_loop(n, c):
+        t = time.perf_counter()
+        for _ in range(n):
+            c.couple({name: fE for name in c.sheets})
+        c.ledger.flush()
+        return time.perf_counter() - t
+
+    run_loop(MS_N1, both)
+    rates = {}
+    for key, names in (("greenland", ("greenland",)),
+                       ("antarctica", ("antarctica",)),
+                       ("both", tuple(SHEETS))):
+        c = both if key == "both" else GCMCoupler(
+            gr, tcfg, device=device,
+            sheets={n: both.sheets[n] for n in names})
+        run_loop(MS_N1, c)
+        t1 = [run_loop(MS_N1, c) for _ in range(3)]
+        t2 = [run_loop(MS_N2, c) for _ in range(3)]
+        rate = lambda a, b: (MS_N2 - MS_N1) / max(b - a, 1e-9)
+        rates[key] = rate(min(t1), min(t2))
+        spread = sorted(rate(a, b) for a, b in zip(t1, t2))
+        say(f"multisheet {key}: {rates[key]:.2f} steps/s (fastest of 3); "
+            f"the 3 pairs' own differences "
+            f"{', '.join(f'{r:.2f}' for r in spread)} steps/s; loops of "
+            f"{MS_N1}: "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in t1)} ms, of {MS_N2}: "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in t2)} ms")
+        check_ledger(c.ledger.to_rows()[-MS_N2:], names,
+                     f"multisheet timed steps, {key}")
+        phase_profile(c, 1e3 / rates[key], device, n=2,
+                      tag=f"multisheet profile, {key}")
+    say(f"multisheet: {rates['greenland']:.2f} steps/s Greenland alone, "
+        f"{rates['antarctica']:.2f} Antarctica alone, {rates['both']:.2f} "
+        f"both (stepwise, deferred ledger, no regeneration; two-point over "
+        f"{MS_N1} and {MS_N2} steps, fastest of 3)")
+    return rates
+
+
+def phase_multisheet(specA, specG, xg_green, device, counters):
+    """Config #5: Antarctica's exchange grid through the clip kernel (all
+    pairs against its plain version, then the build with the launch
+    counters set to 0 just before and read just after, against the f64
+    host build), one GCMCoupler on both sheets driven as phase 3 drives
+    Greenland, steps/s as bench.py measures them, and Antarctica's
+    EvI/IvE/AvI/IvA through the regrid kernels at nv = 16 and 64."""
+    import torch
+    from icebin_tpu_torch import CouplerConfig, GCMCoupler, GCMRegridder
+    from icebin_tpu_torch.grid import make_exchange_grid_host
+    from icebin_tpu_torch.ops.csr import csr_pack
+
+    specAnt = antarctica_spec()
+    phase_clip(specA, specAnt, device, "clip antarctica")
+    gr = GCMRegridder(specA, HCDEFS, device=device)
+    gr.add_sheet("greenland", specG, exchange=xg_green, subdiv=2)
+    for k in counters:
+        k.launches = 0
+    _, build_ms = wall_ms(lambda: gr.add_sheet("antarctica", specAnt,
+                                               subdiv=2))
+    built = {k.__name__: k.launches for k in counters}
+    say(f"multisheet: Antarctica {specAnt.nx} x {specAnt.ny} = "
+        f"{specAnt.ncells} cells, exchange build {build_ms:.1f} ms, launch "
+        f"counts {built}")
+    check(built["clip_areas_centroids"] > 0,
+          "the Antarctica build did not launch the clip kernel")
+    xo, np_ms = wall_ms(lambda: make_exchange_grid_host(specA, specAnt,
+                                                        subdiv=2))
+    say(f"f64 numpy exchange build of Antarctica (host, for comparison) "
+        f"{np_ms:.1f} ms")
+    compare_exchange(gr.sheets["antarctica"].exchange, xo, specAnt,
+                     "exchange antarctica")
+    del xo
+
+    for k in counters:
+        k.launches = 0
+    cfg = CouplerConfig(dt=DT, regen_every=REGEN, defer_ledger=True)
+    cp, init_ms = wall_ms(lambda: GCMCoupler(gr, cfg, device=device))
+    step_ms = []
+    for k in range(2 * REGEN):
+        fE = torch.as_tensor(forcing(gr.nE, seed=k), device=device)
+        out, ms = wall_ms(lambda: cp.couple({n: fE for n in SHEETS}))
+        step_ms.append(ms)
+    fused = lambda t, s: torch.as_tensor(forcing(gr.nE, seed=int(t // DT)),
+                                         device=device)
+    out, fused_ms = wall_ms(lambda: cp.run_transient(fused, REGEN,
+                                                     fused=True))
+    launches = {k.__name__: k.launches for k in counters}
+    say(f"multisheet phase ms: coupler init (both sheets' matrices + packs) "
+        f"{init_ms:.1f}, stepwise steps "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)} (regeneration in steps "
+        f"{REGEN} and {2 * REGEN}), fused window of {REGEN} {fused_ms:.1f}; "
+        f"launch counts {launches}")
+    for name in ("spmm_dest_ice", "spmm_dest_small"):
+        check(launches[name] > 0, f"the two-sheet coupler did not launch "
+                                  f"{name}")
+    check(len(cp.ledger._pending) == 2 * REGEN * len(SHEETS),
+          "the stepwise rows did not go through the deferred ledger")
+    rows = cp.ledger.to_rows()
+    check(len(rows) == 3 * REGEN, f"{len(rows)} ledger rows")
+    check_ledger(rows, SHEETS, "multisheet")
+    for name, specI in (("greenland", specG), ("antarctica", specAnt)):
+        o = out[name]
+        check(tuple(o["fI"].shape) == (8, specI.ncells), f"{name} fI shape")
+        check(tuple(o["fE_out"].shape) == (10, gr.nE), f"{name} fE_out")
+        check(tuple(o["fA_out"].shape) == (10, specA.ncells),
+              f"{name} fA_out")
+        live = cp.sheets[name].mat("EvI").wM > 0
+        check(bool(torch.isfinite(o["fE_out"][3:9, live]).all()),
+              f"{name}: non-finite flux harvest on live E cells")
+        check(bool(torch.isfinite(cp.sheets[name].state.H).all()),
+              f"{name}: non-finite ice state")
+    multisheet_rates(gr, cfg, device)
+
+    sc = cp.sheets["antarctica"]
+    rng = np.random.default_rng(4)
+    for name in ("EvI", "AvI"):
+        M = sc.rm.matrix(name, cp.cfg.params)
+        say(f"antarctica {name}: {M.shape[0]} x {M.shape[1]}, {M.nnz} nnz")
+        for nv in (16, 64):
+            pack = (sc.mat(name).pack if nv == cp.cfg.nv
+                    else csr_pack(M, nv=nv, device=device))
+            check_pack(M, pack, (f"antarctica {name} nv={nv}",
+                                 f"antarctica Iv{name[0]} nv={nv}"), rng, nv)
+    return cp
+
+
+# -- phase 11: the ModelE C ABI driving config #5 --------------------------
+
+def phase_modele(gr, device, counters):
+    """Config #5's grid and exchange-grid files and a RunConfig naming both
+    sheets; the port's gcmce_* C ABI opened through ctypes, two steps of
+    forcing fed in ModelE's ihc-major layout in two 'rank' pieces, and
+    gcmce_couple_native filling the TOPO buffers.  Buffers, ledger rows and
+    ice state are bit for bit those of the port's coupler driven directly
+    on the same forcing."""
+    import ctypes
+    import torch
+    from icebin_tpu_torch import CouplerConfig
+    from icebin_tpu_torch.io import write_exchange, write_grid
+    from icebin_tpu_torch.models import gcmce_shim
+    from icebin_tpu_torch.models.modele_adapter import (ModelEAdapter,
+                                                        to_modele_E)
+    from icebin_tpu_torch.ops._build_gcmce import gcmce_library
+    from icebin_tpu_torch.utils.config import RunConfig, SheetConfig
+
+    path, lib_ms = wall_ms(gcmce_library)
+    lib = ctypes.CDLL(str(path))
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    lib.gcmce_new.argtypes, lib.gcmce_new.restype = [ctypes.c_char_p], \
+        ctypes.c_int
+    lib.gcmce_dims.argtypes = [ctypes.c_int, P, P, P]
+    lib.gcmce_set_start_time.argtypes = [ctypes.c_int, ctypes.c_double]
+    lib.gcmce_add_gcm_outpute.argtypes = [ctypes.c_int, P, P, I64,
+                                          ctypes.c_int]
+    lib.gcmce_couple_native.argtypes = [ctypes.c_int, ctypes.c_double, P, P,
+                                        P, I64]
+    lib.gcmce_delete.argtypes = [ctypes.c_int]
+    nA, nhc, nE = gr.nA, gr.nhc, gr.nE
+    with tempfile.TemporaryDirectory() as d:
+        a = os.path.join(d, "a.nc")
+        write_grid(a, gr.specA)
+        sheets = []
+        for name, sh in gr.sheets.items():
+            i, x = (os.path.join(d, f"{name}_{f}.nc") for f in ("grid", "x"))
+            write_grid(i, sh.gridI)
+            write_exchange(x, sh.exchange)
+            sheets.append(SheetConfig(name=name, grid_file=i,
+                                      exchange_file=x))
+        rc = RunConfig(gridA_file=a, hcdefs=HCDEFS, sheets=sheets,
+                       dt_seconds=DT, regen_every=REGEN)
+        cfg = os.path.join(d, "run.json")
+        rc.to_json(cfg)
+        h, new_ms = wall_ms(lambda: lib.gcmce_new(cfg.encode()))
+    check(h > 0, f"gcmce_new returned {h}")
+    dims = [ctypes.c_int() for _ in range(3)]
+    check(lib.gcmce_dims(h, *map(ctypes.byref, dims)) == 0, "gcmce_dims")
+    dims = tuple(v.value for v in dims)
+    check(dims == gr.specA.shape + (nhc,), f"gcmce_dims {dims}")
+    lib.gcmce_set_start_time(h, 0.0)
+    direct = ModelEAdapter(gr, CouplerConfig(
+        dt=rc.dt_seconds, regen_every=rc.regen_every,
+        min_thickness=rc.min_thickness, params=rc.regrid_params()),
+        device=device)
+    direct.set_start_time(0.0)
+    same, couple_ms = [], []
+    launches = dict.fromkeys((k.__name__ for k in counters), 0)
+    for step in range(2):
+        f = forcing(nE, seed=40 + step)
+        fm = to_modele_E(f.astype(np.float64), nA, nhc)
+        for lo, hi in ((0, nE // 2), (nE // 2, nE)):      # two 'ranks'
+            idx = np.arange(lo, hi, dtype=np.int64)
+            vals = np.ascontiguousarray(fm[:, lo:hi])
+            lib.gcmce_add_gcm_outpute(h, idx.ctypes.data, vals.ctypes.data,
+                                      hi - lo, vals.shape[0])
+        bufs = (np.zeros(nE), np.zeros(nE), np.zeros(nE, np.int32))
+        for k in counters:
+            k.launches = 0
+        rc_, ms = wall_ms(lambda: lib.gcmce_couple_native(
+            h, float(step) * DT, *(b.ctypes.data for b in bufs), nE))
+        for k in counters:          # the C ABI's launches alone
+            launches[k.__name__] += k.launches
+        check(rc_ == 0, f"gcmce_couple_native returned {rc_}")
+        couple_ms.append(ms)
+        fE = torch.as_tensor(f, device=device)
+        direct.coupler.couple({name: fE for name in gr.sheets})
+        same += [np.array_equal(b, w.reshape(-1))
+                 for b, w in zip(bufs, direct.topo())]
+    ad = gcmce_shim._handles[h]
+    rows = ad.coupler.ledger.to_rows() == direct.coupler.ledger.to_rows()
+    state = all(torch.equal(getattr(ad.coupler.sheets[n].state, k),
+                            getattr(direct.coupler.sheets[n].state, k))
+                for n in gr.sheets for k in ("H", "enth"))
+    fhc = bufs[0].reshape(nhc, -1).sum(axis=0)
+    say(f"modele: C ABI built in {lib_ms:.1f} ms (g++, embedded CPython); "
+        f"gcmce_new {new_ms:.1f} ms (files, regridder, both sheets' "
+        f"matrices), dims {dims}; gcmce_couple_native "
+        f"{', '.join(f'{m:.1f}' for m in couple_ms)} ms (2 steps, TOPO "
+        f"included); fhc/elevE/underice bit for bit the direct coupler's "
+        f"{same}, ledger rows {rows}, ice state {state}; sheets under ice "
+        f"{sorted(set(np.unique(bufs[2])) - {0})}, max |sum_hc fhc - 1| on "
+        f"iced A cells {np.abs(fhc[fhc > 0] - 1).max():.3e}; launch counts "
+        f"in the 2 gcmce_couple_native calls alone {launches}")
+    check(all(same) and rows and state,
+          "the C ABI's coupling differs from the directly driven coupler")
+    check(np.abs(fhc[fhc > 0] - 1).max() < 1e-9, "fhc does not sum to 1")
+    for name in ("spmm_dest_ice", "spmm_dest_small"):
+        check(launches[name] > 0, f"the C ABI did not launch {name}")
+    lib.gcmce_delete(h)
+    check(h not in gcmce_shim._handles, "gcmce_delete kept the handle")
+
+
+# -- phase 12: the stream-only floors and the tile product ------------------
+
+def phase_floors(sheets, device):
+    """The stream-only floors on each sheet's EvI (dest-small) and IvE
+    (dest-ice) at nv = 16, timed beside the stock kernel on the same
+    matrix and field; then the tile product at Greenland and Antarctica
+    depth beside its plain version and torch.bmm.  Launch counters are set
+    to 0 just before the timed runs and read just after; the comparisons
+    with the plain versions follow."""
+    import torch
+    from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+    from icebin_tpu_torch.ops.floor import (spmm_floor_ice,
+                                            spmm_floor_ice_ref,
+                                            spmm_floor_small,
+                                            spmm_floor_small_ref)
+    from icebin_tpu_torch.ops.prods import tile_prods, tile_prods_ref
+    floors = ((spmm_floor_small, spmm_floor_small_ref, spmm_dest_small,
+               "small", "EvI"),
+              (spmm_floor_ice, spmm_floor_ice_ref, spmm_dest_ice, "ice",
+               "IvE"))
+    rng = np.random.default_rng(5)
+    cases = []
+    for sheet, sc in sheets.items():
+        pack = sc.mat("EvI").pack
+        for floor, ref, stock, side, tag in floors:
+            csr = getattr(pack, side)
+            x = torch.as_tensor((260.0 + 30.0 * rng.uniform(
+                size=(csr.n_src, 16))).astype(np.float32), device=device)
+            cases.append((floor, ref, stock, csr, x, f"{sheet} {tag}"))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    tiles = [(torch.rand((B, 32, 128), generator=gen, device=device) * 2 - 1,
+              torch.rand((B, 8, 128), generator=gen, device=device) * 2 - 1)
+             for B in PRODS_ROWS]
+    for k in (spmm_floor_small, spmm_floor_ice, tile_prods):
+        k.launches = 0
+    t_floor = [time_ms(lambda: c[0](c[3], c[4]), 50) for c in cases]
+    t_prods = [time_ms(lambda: tile_prods(T, F), 50) for T, F in tiles]
+    launches = {k.__name__: k.launches
+                for k in (spmm_floor_small, spmm_floor_ice, tile_prods)}
+    say(f"floors: launch counts in the timed runs {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched")
+
+    res = {}
+    for (floor, ref, stock, csr, x, tag), ms in zip(cases, t_floor):
+        got, again, plain = floor(csr, x), floor(csr, x), ref(csr, x)
+        torch.cuda.synchronize()
+        err = (got - plain).abs().max().item()
+        ident = bool(torch.equal(got, again))
+        stock_ms = time_ms(lambda: stock(csr, x), 50)
+        plain_ms = time_ms(lambda: ref(csr, x), 3)
+        bound_ms, bound_by = spmm_bound(csr, x.shape[1])
+        say(f"{floor.__name__} {tag}: ({csr.n_src} x 16) -> ({csr.n_dst} x "
+            f"16), {csr.vals.numel()} nnz: max |kernel - plain| {err:.3e} "
+            f"(limit 0: the same f32 adds in the same order), rerun "
+            f"bit-identical {ident}; floor {ms:.4f} ms, stock "
+            f"{stock.__name__} {stock_ms:.4f} ms, stock - floor "
+            f"{stock_ms - ms:.4f} ms ({100 * (1 - ms / stock_ms):.1f}% of "
+            f"the stock time); plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        check(err == 0.0, f"{floor.__name__} {tag} vs plain {err:.3e}")
+        check(ident, f"{floor.__name__} {tag} rerun is not bit-identical")
+        # the JSON row keeps the main path's matrices: Greenland
+        if tag.startswith("greenland"):
+            res[floor.__name__] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "launches": launches[floor.__name__]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (T, F), ms in zip(tiles, t_prods):
+        B = T.shape[0]
+        got, again, plain = tile_prods(T, F), tile_prods(T, F), \
+            tile_prods_ref(T, F)
+        lib = torch.bmm(T, F.transpose(1, 2))
+        mag = torch.matmul(T.abs().double(), F.abs().double().transpose(1, 2))
+        err = ((got.double() - plain.double()).abs() / mag).max().item()
+        err_lib = ((got.double() - lib.double()).abs() / mag).max().item()
+        ident = bool(torch.equal(got, again))
+        plain_ms = time_ms(lambda: tile_prods_ref(T, F), 10)
+        lib_ms = time_ms(lambda: torch.bmm(T, F.transpose(1, 2)), 50)
+        nbytes = 4 * B * (32 * 128 + 8 * 128 + 32 * 8)
+        bound_ms, bound_by = bound(nbytes, 2 * B * 32 * 8 * 128)
+        say(f"tile_prods: {B} x (32 x 128) . (8 x 128)^T f32, "
+            f"{nbytes / 1e6:.1f} MB: kernel {ms:.4f} ms = "
+            f"{nbytes / ms / 1e6:.1f} GB/s, torch.bmm (TF32 off) "
+            f"{lib_ms:.4f} ms, plain (f64) {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| / "
+            f"sum|T F| {err:.3e}, vs torch.bmm {err_lib:.3e} (limit "
+            f"{PRODS_TOL:.3e}), rerun bit-identical {ident}")
+        check(err < PRODS_TOL and err_lib < 2 * PRODS_TOL,
+              f"tile_prods vs plain {err:.3e}, vs bmm {err_lib:.3e}")
+        check(ident, "tile_prods rerun is not bit-identical")
+        # the JSON row keeps Antarctica depth, from HBM
+        res["tile_prods"] = {
+            "max_abs_err": (got - plain).abs().max().item(), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "launches": launches["tile_prods"]}
+    return res
+
+
 def main():
     global CARD
     try:
@@ -845,6 +1256,8 @@ def main():
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
     device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     CARD = nvidia_smi()
     t = time.perf_counter()
     _build.library()
@@ -867,10 +1280,17 @@ def main():
     phase_run(specA, specI, cp.gr.sheets["greenland"].exchange, device,
               counters)
     roof = phase_roof(device)
+    ms = phase_multisheet(specA, specI, cp.gr.sheets["greenland"].exchange,
+                          device, counters)
+    phase_modele(ms.gr, device, counters)
+    floors = phase_floors({"greenland": cp.sheets["greenland"],
+                           "antarctica": ms.sheets["antarctica"]}, device)
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]
     launches["stream_reduce"] = roof["launches"]
+    for name, res in floors.items():
+        launches[name] = res["launches"]
 
     def row(name, source, replaces, res):
         return {"name": name, "route": "cuda", "source": source,
@@ -900,7 +1320,16 @@ def main():
         row("stream_reduce", "icebin_tpu_torch/csrc/roof.cu",
             "tools/bench_roof.py:58 and tools/probe_stream_scale.py:40",
             roof),
+        row("spmm_floor_small", "icebin_tpu_torch/csrc/floor.cu",
+            "tools/probe_floor.py:59 and tools/probe_ant_nv.py:144",
+            floors["spmm_floor_small"]),
+        row("spmm_floor_ice", "icebin_tpu_torch/csrc/floor.cu",
+            "tools/probe_floor.py:84", floors["spmm_floor_ice"]),
+        row("tile_prods", "icebin_tpu_torch/csrc/prods.cu",
+            "tools/probe_prods_scale.py:69", floors["tile_prods"]),
     ]
+    say(f"whole script {time.perf_counter() - t0:.1f} s (the build "
+        f"included)")
     print(json.dumps({"kernels": kernels}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

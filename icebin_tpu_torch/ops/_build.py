@@ -21,7 +21,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["library", "build", "build_log", "check"]
+__all__ = ["library", "build", "build_log", "check", "digest", "install"]
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "icebin_tpu_torch"
@@ -38,6 +38,9 @@ _SIGNATURES = {
     "clip_rect": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
     "clip_poly": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
     "stream_reduce": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
+    "spmm_floor_small": ((_P,) * 6 + (_I,) * 2 + (_P,), _I),
+    "spmm_floor_ice": ((_P,) * 6 + (_I,) * 2 + (_P,), _I),
+    "tile_prods": ((_P,) * 3 + (_I,) + (_P,), _I),
     "icebin_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -58,29 +61,47 @@ def _sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
-def _build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+def digest(*parts: bytes) -> str:
+    """Short hash of ``parts``: the name of a build's cache directory."""
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p)
+    return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels if this source set has no library yet; returns
-    the library's path.  A failed compile raises with nvcc's output."""
-    out_dir = _build_dir()
-    lib = out_dir / LIB_NAME
+def install(out_dir: Path, lib_name: str, make) -> Path:
+    """``out_dir / lib_name``, built by ``make(tmp, log)`` unless it exists.
+    ``make`` writes the library to ``tmp``, appends the compilers' output to
+    the list ``log`` (saved as ``build.log``, also on failure) and raises if
+    a compile fails; the library is then moved into place atomically, so
+    concurrent builders agree."""
+    lib = out_dir / lib_name
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib_name}.{os.getpid()}.tmp"
+    log = []
+    try:
+        make(tmp, log)
+        os.replace(tmp, lib)
+    finally:
+        (out_dir / "build.log").write_text("".join(log))
+        tmp.unlink(missing_ok=True)
+    return lib
+
+
+def _build_dir() -> Path:
+    return BUILD_ROOT / digest(" ".join(NVCC_FLAGS).encode(), *(
+        b for src in _sources() for b in (src.name.encode(),
+                                          src.read_bytes())))
+
+
+def _compile(tmp: Path, log: list) -> None:
     nvcc, pid = _nvcc(), os.getpid()
-    objs = [out_dir / f"{src.stem}.{pid}.o" for src in _sources()]
+    objs = [tmp.parent / f"{src.stem}.{pid}.o" for src in _sources()]
     jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for obj, src in zip(objs, _sources())]
-    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
     link = [nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)]
-    log = []
 
     def run(cmds):
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -96,7 +117,6 @@ def build() -> Path:
         log.extend(" ".join(c) + "\n" + out for c, out in zip(cmds, outs))
         for p, out in zip(procs, outs):
             if p.returncode != 0:
-                (out_dir / "build.log").write_text("".join(log))
                 raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
                                    f"{out[-6000:]}")
 
@@ -106,9 +126,12 @@ def build() -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    (out_dir / "build.log").write_text("".join(log))
-    os.replace(tmp, lib)           # atomic: concurrent builders agree
-    return lib
+
+
+def build() -> Path:
+    """Compile the kernels if this source set has no library yet; returns
+    the library's path.  A failed compile raises with nvcc's output."""
+    return install(_build_dir(), LIB_NAME, _compile)
 
 
 def build_log() -> str:

@@ -38,12 +38,9 @@ def spmm_ref(csr: Csr, x: torch.Tensor, scale: bool = True) -> torch.Tensor:
     """Plain version of both kernels: x (n_src, nv) f32 -> (n_dst, nv) f32,
     ``out[r] = winv[r] * sum_k vals[k] * clean(x[cols[k]])``."""
     x64 = torch.where(torch.isfinite(x), x, 0.0).to(torch.float64)
-    counts = (csr.rowptr[1:] - csr.rowptr[:-1]).to(torch.int64)
-    rows = torch.repeat_interleave(
-        torch.arange(csr.n_dst, device=x.device), counts)
     contrib = csr.vals.to(torch.float64)[:, None] * x64[csr.cols.long()]
     out = torch.zeros((csr.n_dst, x.shape[1]), dtype=torch.float64,
-                      device=x.device).index_add_(0, rows, contrib)
+                      device=x.device).index_add_(0, csr.rows(), contrib)
     if scale:
         out = out * csr.winv.to(torch.float64)[:, None]
     return out.to(torch.float32)
@@ -58,8 +55,9 @@ def _check_operands(csr: Csr, x: torch.Tensor) -> None:
         raise ValueError(f"field on {x.device}, matrix on {csr.device}")
 
 
-def _launch(name: str, csr: Csr, x: torch.Tensor,
-            scale: bool) -> torch.Tensor:
+def _launch(name: str, csr: Csr, x: torch.Tensor, *flags: int) -> torch.Tensor:
+    """Launch the CSR kernel ``name`` on x's stream; ``flags`` are the int
+    arguments after ``nv`` (the regrid kernels' ``scale``)."""
     out = torch.empty((csr.n_dst, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     lib = _build.library()
@@ -68,7 +66,7 @@ def _launch(name: str, csr: Csr, x: torch.Tensor,
         status = getattr(lib, name)(
             csr.rowptr.data_ptr(), csr.cols.data_ptr(), csr.vals.data_ptr(),
             csr.winv.data_ptr(), x.data_ptr(), out.data_ptr(), csr.n_dst,
-            x.shape[1], int(scale), stream)
+            x.shape[1], *flags, stream)
     _build.check(status, name)
     return out
 
@@ -87,7 +85,7 @@ def spmm_dest_small(csr: Csr, x: torch.Tensor,
     _check_operands(csr, x)
     if on_cpu(x, "spmm_dest_small"):
         return spmm_ref(csr, x, scale)
-    out = _launch("spmm_dest_small", csr, x, scale)
+    out = _launch("spmm_dest_small", csr, x, int(scale))
     spmm_dest_small.launches += 1
     return out
 
@@ -98,7 +96,7 @@ def spmm_dest_ice(csr: Csr, x: torch.Tensor,
     _check_operands(csr, x)
     if on_cpu(x, "spmm_dest_ice"):
         return spmm_ref(csr, x, scale)
-    out = _launch("spmm_dest_ice", csr, x, scale)
+    out = _launch("spmm_dest_ice", csr, x, int(scale))
     spmm_dest_ice.launches += 1
     return out
 

@@ -38,6 +38,12 @@ class Csr:
     def device(self) -> torch.device:
         return self.vals.device
 
+    def rows(self) -> torch.Tensor:
+        """(nnz,) int64 destination row of every nonzero."""
+        counts = (self.rowptr[1:] - self.rowptr[:-1]).to(torch.int64)
+        return torch.repeat_interleave(
+            torch.arange(self.n_dst, device=self.device), counts)
+
 
 def csr_from_coo(dst, src, vals, n_dst: int, n_src: int, w_dst, *,
                  device) -> Csr:

@@ -13,8 +13,17 @@ sums 16 * V0 slots in f32, so areas agree to 1e-5 of the ring's scale; the
 convex-clip kernel likewise against V0 * 2**Vc slots; the stream-reduce
 kernel sums in f64 where its plain version sums in f32, so they agree to
 1e-5 of sum |x|; a resumed coupler is bit for bit the one that was not
-interrupted (no float atomics anywhere in a step).
+interrupted (no float atomics anywhere in a step).  The stream-only floors
+and their plain versions add the same f32 values in the same order, so they
+agree bit for bit; the tile product's f32 multiply-add chain of 128 terms
+agrees with its plain version (f64, rounded once) and with torch.bmm (TF32
+off) within 130 * 2**-24 of sum |T * F|.  A two-sheet coupler on the card
+is held to its CPU run as phase 6 of chip_smoke.py holds the toy (1e-5 of
+the ice state, 1e-6 of each ledger row), and the gcmce C ABI on the card
+is bit for bit the adapter driven directly.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +35,10 @@ from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                        clip_areas_centroids_poly_ref,
                                        clip_areas_centroids_ref)
 from icebin_tpu_torch.ops.csr import csr_pack
+from icebin_tpu_torch.ops.floor import (spmm_floor_ice, spmm_floor_ice_ref,
+                                        spmm_floor_small,
+                                        spmm_floor_small_ref)
+from icebin_tpu_torch.ops.prods import tile_prods, tile_prods_ref
 from icebin_tpu_torch.ops.roof import stream_reduce, stream_reduce_ref
 from icebin_tpu_torch.regrid.sparse import WeightedMatrix
 
@@ -273,3 +286,176 @@ def test_resume_is_bit_identical_on_the_card(cuda, tmp_path):
         assert torch.equal(getattr(a.sheets["toy"].state, k),
                            getattr(b.sheets["toy"].state, k)), k
     assert a.ledger.to_rows() == b.ledger.to_rows()
+
+
+@pytest.mark.parametrize("nv", [1, 16, 20, 64])
+def test_floor_kernels_match_plain(cuda, nv):
+    """Both floors bit for bit their plain versions (the same f32 adds in
+    the same order), non-finite sources propagating; reruns identical."""
+    M = synth(seed=20 + nv)
+    pack = csr_pack(M, nv=16, device=cuda)
+    rng = np.random.default_rng(nv)
+    for kern, ref, csr in ((spmm_floor_small, spmm_floor_small_ref,
+                            pack.small),
+                           (spmm_floor_ice, spmm_floor_ice_ref, pack.ice)):
+        x = rng.uniform(-1.0, 2.0, (csr.n_src, nv)).astype(np.float32)
+        x[::13, 0] = np.nan
+        xt = torch.as_tensor(x, device=cuda)
+        n0 = kern.launches
+        got = kern(csr, xt)
+        assert kern.launches == n0 + 1
+        want = ref(csr, xt)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.nan_to_num(got, nan=7.0),
+                           torch.nan_to_num(want, nan=7.0))
+        assert bool(torch.isnan(got[:, 0]).any())
+        assert torch.equal(torch.nan_to_num(got, nan=7.0),
+                           torch.nan_to_num(kern(csr, xt), nan=7.0))
+
+
+def test_tile_prods_matches_plain_and_bmm(cuda):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    B = 777
+    T = torch.rand((B, 32, 128), generator=g, device=cuda) * 2 - 1
+    F = torch.rand((B, 8, 128), generator=g, device=cuda) * 2 - 1
+    n0 = tile_prods.launches
+    got = tile_prods(T, F)
+    assert tile_prods.launches == n0 + 1
+    mag = torch.matmul(T.abs().double(), F.abs().double().transpose(1, 2))
+    tol = 130 * 2.0 ** -24 * mag
+    assert bool(((got.double() - tile_prods_ref(T, F).double()).abs()
+                 <= tol).all())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = torch.bmm(T, F.transpose(1, 2))
+    assert bool(((got.double() - lib.double()).abs() <= 2 * tol).all())
+    assert torch.equal(got, tile_prods(T, F))
+    with pytest.raises(ValueError):                 # not 16-byte aligned
+        tile_prods(T.reshape(-1)[1:1 + T.numel() - 4096].reshape(B - 1, 32,
+                                                                 128), F[1:])
+
+
+def two_sheet_specs():
+    """A 6 x 6 lat-lon atmosphere over two plate carree sheets, west and
+    east, that touch disjoint A cells."""
+    from icebin_tpu_torch.grid import GridSpecLonLat, GridSpecXY, PlateCarree
+    s = 25e3
+    specA = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                           latb=np.linspace(30.0, 80.0, 7))
+    sheets = {name: GridSpecXY(xb=np.linspace(x0 * s, x1 * s, 25),
+                               yb=np.linspace(30.0 * s, 80.0 * s, 41),
+                               projection=PlateCarree(scale=s))
+              for name, x0, x1 in (("west", 0.0, 20.0),
+                                   ("east", 20.0, 40.0))}
+    return specA, sheets
+
+
+def toy_forcing(nE, seed):
+    rng = np.random.default_rng(seed)
+    f = np.zeros((8, nE), np.float32)
+    f[0] = 1e-5 * rng.uniform(0.5, 1.0, nE)
+    f[1] = 5.0
+    f[4] = -10.0
+    return f
+
+
+def test_two_sheet_coupler_on_the_card_matches_cpu(cuda):
+    import icebin_tpu_torch as port
+    specA, sheets = two_sheet_specs()
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        gr = port.GCMRegridder(specA, [0.0, 500.0, 1000.0, 2000.0],
+                               device=dev)
+        for name, specI in sheets.items():
+            gr.add_sheet(name, specI, subdiv=1)
+        cp = port.GCMCoupler(gr, port.CouplerConfig(regen_every=2),
+                             device=dev)
+        for k in range(3):
+            f = toy_forcing(gr.nE, k)
+            cp.couple({name: torch.as_tensor(f, device=dev)
+                       for name in sheets})
+        runs.append(cp)
+    g, c = runs
+    for name in sheets:
+        hg, hc = g.sheets[name].state.H.cpu(), c.sheets[name].state.H
+        assert float((hg - hc).abs().max() / hc.abs().max()) < 1e-5
+    for rg, rc in zip(g.ledger.to_rows(), c.ledger.to_rows()):
+        for name in sheets:
+            for key in ("mass_in_E", "mass_delivered_I", "ice_mass",
+                        "energy_in_E", "energy_delivered_I"):
+                a, b = rg[f"{name}.{key}"], rc[f"{name}.{key}"]
+                assert abs(a - b) <= 1e-6 * abs(b), (name, key)
+            m = rg[f"{name}.mass_in_E"]
+            assert abs(m - rg[f"{name}.mass_delivered_I"]) < 1e-10 * abs(m)
+
+
+def test_gcmce_c_abi_on_the_card(cuda, tmp_path):
+    """gcmce_* through ctypes, as a Fortran GCM calls it: two ranks'
+    forcing per step, three couple_native calls on the card (a matrix
+    regeneration after the second, so TOPO depends on the forcing).  The
+    TOPO buffers of every step, the ledger rows and the sheets' ice state
+    are bit for bit an adapter on the card driven directly with the same
+    forcing."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.io.ncio import write_grid
+    from icebin_tpu_torch.models import gcmce_shim
+    from icebin_tpu_torch.models.modele_adapter import (ModelEAdapter,
+                                                        to_modele_E)
+    from icebin_tpu_torch.ops._build_gcmce import gcmce_library
+    from icebin_tpu_torch.utils.config import RunConfig, SheetConfig
+    specA, sheets = two_sheet_specs()
+    hc = [0.0, 500.0, 1000.0, 2000.0]
+    paths = {"A": str(tmp_path / "a.nc")}
+    write_grid(paths["A"], specA)
+    for name, specI in sheets.items():
+        paths[name] = str(tmp_path / f"{name}.nc")
+        write_grid(paths[name], specI)
+    cfg = str(tmp_path / "run.json")
+    RunConfig(gridA_file=paths["A"], hcdefs=hc, regen_every=2,
+              sheets=[SheetConfig(name=n, grid_file=paths[n], subdiv=1)
+                      for n in sheets]).to_json(cfg)
+    lib = ctypes.CDLL(str(gcmce_library()))
+    lib.gcmce_new.restype = ctypes.c_int
+    h = lib.gcmce_new(cfg.encode())
+    assert h > 0
+    im, jm, nhc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert lib.gcmce_dims(h, ctypes.byref(im), ctypes.byref(jm),
+                          ctypes.byref(nhc)) == 0
+    assert (im.value, jm.value, nhc.value) == (6, 6, 4)
+    gr = port.GCMRegridder(specA, hc, device=cuda)
+    for name, specI in sheets.items():
+        gr.add_sheet(name, specI, subdiv=1)
+    direct = ModelEAdapter(gr, port.CouplerConfig(regen_every=2),
+                           device=cuda)
+    nE = gr.nE
+    p64, pd = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double)
+    for step in range(3):
+        fm = to_modele_E(toy_forcing(nE, step).astype(np.float64), gr.nA,
+                         gr.nhc)
+        for lo, hi in ((0, nE // 2), (nE // 2, nE)):
+            idx = np.arange(lo, hi, dtype=np.int64)
+            vals = np.ascontiguousarray(fm[:, lo:hi])
+            lib.gcmce_add_gcm_outpute(h, idx.ctypes.data_as(p64),
+                                      vals.ctypes.data_as(pd),
+                                      ctypes.c_int64(hi - lo), 8)
+            direct.add_rank_output(idx, vals)
+        fhc, elevE = np.zeros(nE), np.zeros(nE)
+        under = np.zeros(nE, np.int32)
+        assert lib.gcmce_couple_native(
+            h, ctypes.c_double(step * 86400.0 * 30), fhc.ctypes.data_as(pd),
+            elevE.ctypes.data_as(pd),
+            under.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.c_int64(nE)) == 0
+        direct.couple_native(step * 86400.0 * 30)
+        for got, want in zip((fhc, elevE, under), direct.topo()):
+            np.testing.assert_array_equal(got, want.reshape(-1))
+        assert set(np.unique(under)) == {0, 1, 2}   # both sheets present
+    ad = gcmce_shim._handles[h]
+    assert ad.coupler.ledger.to_rows() == direct.coupler.ledger.to_rows()
+    assert len(ad.coupler.ledger.to_rows()) == 3
+    for name in sheets:
+        for key in ("H", "enth"):
+            assert torch.equal(getattr(ad.coupler.sheets[name].state, key),
+                               getattr(direct.coupler.sheets[name].state,
+                                       key)), (name, key)
+    lib.gcmce_delete(h)

@@ -6,9 +6,11 @@ must agree bit for bit (the copies change imports only).
 Covered: exchange grids (Greenland-like stereographic XY, cross-projection
 XY, lat-lon x lat-lon, XY x XY in one plane, generic polygons), the regrid
 matrices EvI/IvE/AvI/IvA (with and without the smoother's sigma) and
-E1vE0, unit conversions and the coupling contracts, ``Indexing``, and
+E1vE0, unit conversions and the coupling contracts, ``Indexing``,
 grid/exchange/regridder/matrix files written by either package and read
-back by the other.
+back by the other, the multivec wire format (``to_dense``, ``from_dense``,
+``concatenate``) and the TOPO pipeline (``make_topoo``, ``merge_topo``,
+``elevation_class_fields``) on tests/test_topo_modele.py's inputs.
 """
 import dataclasses
 
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from icebin_tpu.coupler import multivec as ref_mv
 from icebin_tpu.coupler import units as ref_units
 from icebin_tpu.coupler import varset as ref_varset
 from icebin_tpu.coupler.e1ve0 import e1ve0_matrix as ref_e1ve0
@@ -23,10 +26,13 @@ from icebin_tpu.grid import proj as ref_proj, spec as ref_spec
 from icebin_tpu.grid.exchange import make_exchange_grid as ref_build
 from icebin_tpu.io import ncio as ref_ncio
 from icebin_tpu.regrid.gcmregridder import GCMRegridder as RefRegridder
+from icebin_tpu.regrid.hntr import hntr_spec as ref_hntr_spec
 from icebin_tpu.regrid.matrices import RegridParams as RefParams
 from icebin_tpu.regrid.sparse import WeightedMatrix as RefMatrix
+from icebin_tpu.topo import topo as ref_topo
 from icebin_tpu.utils.indexing import Indexing as RefIndexing
 
+from icebin_tpu_torch.coupler import multivec as port_mv
 from icebin_tpu_torch.coupler import units as port_units
 from icebin_tpu_torch.coupler import varset as port_varset
 from icebin_tpu_torch.coupler.e1ve0 import e1ve0_matrix as port_e1ve0
@@ -36,8 +42,10 @@ from icebin_tpu_torch.grid.exchange import \
 from icebin_tpu_torch.io import ncio as port_ncio
 from icebin_tpu_torch.regrid.gcmregridder import \
     GCMRegridder as PortRegridder
+from icebin_tpu_torch.regrid.hntr import hntr_spec as port_hntr_spec
 from icebin_tpu_torch.regrid.matrices import RegridParams as PortParams
 from icebin_tpu_torch.regrid.sparse import WeightedMatrix as PortMatrix
+from icebin_tpu_torch.topo import topo as port_topo
 from icebin_tpu_torch.utils.indexing import Indexing as PortIndexing
 
 from helpers import greenland_patch, toy_elevmask
@@ -247,3 +255,95 @@ def test_files_interchange(tmp_path, regridders, writer):
         Mb = r.read_matrix(path)
         assert isinstance(Mb, PortMatrix if r is port_ncio else RefMatrix)
         assert_same_matrix(Mb, M)
+
+
+def test_multivec_bit_identical():
+    """to_dense (duplicates accumulate, either fill), from_dense (with and
+    without a mask) and concatenate on the same arrays."""
+    rng = np.random.default_rng(3)
+    idx = rng.integers(0, 40, 30)
+    vals = rng.uniform(-1.0, 1.0, (3, 30))
+    vals[:, ::7] = 0.0
+    mp = port_mv.VectorMultivec(index=idx, vals=vals)
+    mr = ref_mv.VectorMultivec(index=idx, vals=vals)
+    assert mp.nvar == mr.nvar == 3
+    for fill in (0.0, np.nan):
+        np.testing.assert_array_equal(mp.to_dense(40, fill),
+                                      mr.to_dense(40, fill))
+    d = mp.to_dense(40)
+    for mask in (None, np.arange(40) % 3 == 0):
+        dp = port_mv.VectorMultivec.from_dense(d, mask)
+        dr = ref_mv.VectorMultivec.from_dense(d, mask)
+        np.testing.assert_array_equal(dp.index, dr.index)
+        np.testing.assert_array_equal(dp.vals, dr.vals)
+    np.testing.assert_array_equal(
+        port_mv.VectorMultivec.from_dense(d).to_dense(40), d)
+    cp = port_mv.concatenate([mp, port_mv.VectorMultivec.from_dense(d)])
+    cr = ref_mv.concatenate([mr, ref_mv.VectorMultivec.from_dense(d)])
+    np.testing.assert_array_equal(cp.index, cr.index)
+    np.testing.assert_array_equal(cp.vals, cr.vals)
+    assert port_mv.concatenate([]).vals.shape == ref_mv.concatenate(
+        []).vals.shape
+    for mod in (port_mv, ref_mv):
+        with pytest.raises(ValueError):
+            mod.concatenate([mod.VectorMultivec(idx, vals),
+                             mod.VectorMultivec([1], [[1.0]])])
+        with pytest.raises(ValueError):
+            mod.VectorMultivec(index=[1, 2], vals=[[1.0]])
+
+
+def assert_same_topo(tp, tr):
+    for k in port_topo.FRACTION_FIELDS + ("zatmo",):
+        np.testing.assert_array_equal(getattr(tp, k), getattr(tr, k), k)
+
+
+def test_make_topoo_bit_identical():
+    """tests/test_topo_modele.py's synthetic base (72 x 46) downsampled onto
+    its 36 x 24 ocean grid."""
+    tr = ref_topo.make_topoo(ref_topo.synthetic_z1qx1n(ref_hntr_spec(72, 46)),
+                             ref_hntr_spec(36, 24))
+    tp = port_topo.make_topoo(
+        port_topo.synthetic_z1qx1n(port_hntr_spec(72, 46)),
+        port_hntr_spec(36, 24))
+    assert_same_topo(tp, tr)
+
+
+@pytest.fixture(scope="module")
+def topo_regridders():
+    """tests/test_topo_modele.py's ``_toy_gr`` (8 x 8 lat-lon x 40 x 40
+    plate carree) in both packages, the port's sheet from its own host
+    exchange build; and the test's elevmask."""
+    scale = 25e3
+    specA = ref_spec.GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 9),
+                                    latb=np.linspace(30.0, 70.0, 9))
+    specI = ref_spec.GridSpecXY(
+        xb=np.linspace(5.0 * scale, 35.0 * scale, 41),
+        yb=np.linspace(35.0 * scale, 65.0 * scale, 41),
+        projection=ref_proj.PlateCarree(scale=scale))
+    hc = [0.0, 500.0, 1500.0, 3000.0]
+    gr_r = RefRegridder(specA, hcdefs=hc)
+    gr_r.add_sheet("s", specI, subdiv=1, engine="numpy")
+    gr_p = PortRegridder(to_port(specA), hcdefs=hc, device=CPU)
+    pI = to_port(specI)
+    gr_p.add_sheet("s", pI, exchange=port_build(gr_p.gridA, pI, subdiv=1),
+                   subdiv=1)
+    return gr_r, gr_p, toy_elevmask(specI, ice_frac=0.5)
+
+
+def test_merge_topo_bit_identical(topo_regridders):
+    gr_r, gr_p, elev = topo_regridders
+    tr = ref_topo.merge_topo(ref_topo.synthetic_z1qx1n(gr_r.specA), gr_r,
+                             {"s": elev})
+    tp = port_topo.merge_topo(port_topo.synthetic_z1qx1n(gr_p.specA), gr_p,
+                              {"s": elev})
+    assert_same_topo(tp, tr)
+
+
+def test_elevation_class_fields_bit_identical(topo_regridders):
+    gr_r, gr_p, elev = topo_regridders
+    got = port_topo.elevation_class_fields(gr_p, {"s": elev})
+    want = ref_topo.elevation_class_fields(gr_r, {"s": elev})
+    assert got[0].shape == (gr_p.nhc, gr_p.nA)
+    assert (got[2] > 0).any()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -1,7 +1,8 @@
 """The port runs without JAX and without the reference package: no module
 of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
-coupler, the overlap CLI and the run CLI; chip_smoke.py imports only the
-port and refuses to run without a GPU.
+coupler, the overlap CLI, the run CLI, ``ModelEAdapter.couple_native`` and
+a gcmce shim round trip; chip_smoke.py imports only the port and refuses to
+run without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
 process has JAX loaded by the suite's conftest.
@@ -72,6 +73,29 @@ with tempfile.TemporaryDirectory() as d:
         assert run([cfg, "--device", "cpu", "--fused",
                     "--resume", "checkpoint_000001.npz"]) == 0
     assert len(os.listdir(os.path.join(d, "dumps"))) == 2
+    # the ModelE boundary: the adapter's couple_native, then a shim round
+    # trip with the buffers as the C ABI passes them
+    from icebin_tpu_torch.models import gcmce_shim
+    from icebin_tpu_torch.models.modele_adapter import (ModelEAdapter,
+                                                        to_modele_E)
+    fm = to_modele_E(f.astype(np.float64), gr.nA, gr.nhc)
+    ad = ModelEAdapter(gr, port.CouplerConfig(regen_every=1), device=cpu)
+    ad.add_rank_output(np.arange(gr.nE), fm)
+    assert ad.couple_native(0.0)["toy"]["fE_out_modele"].shape == (10, gr.nE)
+    assert ad.topo()[0].shape == (gr.nhc, 6, 6)
+    cfg = os.path.join(d, "modele.json")
+    RunConfig(gridA_file=a, hcdefs=[0.0, 1000.0, 3000.0],
+              sheets=[SheetConfig(name="toy", grid_file=i)]).to_json(cfg)
+    h = gcmce_shim.gcmce_new(cfg, device="cpu")
+    idx = np.arange(gr.nE, dtype=np.int64)
+    gcmce_shim.gcmce_add_gcm_outpute(h, memoryview(idx),
+                                     memoryview(np.ascontiguousarray(fm)),
+                                     gr.nE, 8)
+    bufs = (np.zeros(gr.nE), np.zeros(gr.nE), np.zeros(gr.nE, np.int32))
+    assert gcmce_shim.gcmce_couple_native(h, 0.0,
+                                          *map(memoryview, bufs)) == 0
+    assert bufs[0].sum() > 0
+    gcmce_shim.gcmce_delete(h)
     os.chdir(os.path.dirname(d))
 print(len(rows), max(m), "jax" in sys.modules,
       sorted(k for k in sys.modules
@@ -88,9 +112,9 @@ def _env():
 
 
 def test_port_imports_no_jax():
-    """A toy coupler, a generic-polygon exchange build, the overlap CLI and
-    the run CLI run in an interpreter that never imports JAX nor the
-    reference package."""
+    """A toy coupler, a generic-polygon exchange build, the overlap CLI, the
+    run CLI, the ModelE adapter and the gcmce shim run in an interpreter
+    that never imports JAX nor the reference package."""
     out = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
@@ -119,6 +143,10 @@ def test_port_source_imports_nothing_of_the_reference():
     of the file (top, function, conditional)."""
     files = sorted((ROOT / "icebin_tpu_torch").rglob("*.py"))
     assert len(files) > 30
+    names = {str(f.relative_to(ROOT / "icebin_tpu_torch")) for f in files}
+    assert {"coupler/multivec.py", "topo/topo.py", "models/modele_adapter.py",
+            "models/gcmce_shim.py", "ops/_build_gcmce.py", "ops/floor.py",
+            "ops/prods.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f)
                                             if m.split(".")[0] in
                                             ("icebin_tpu", "jax", "jaxlib"))
