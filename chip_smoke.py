@@ -67,7 +67,17 @@ Phases, each of which exits non-zero on failure:
 12. floors the stream-only floors beside the regrid kernels on both
            sheets' EvI/IvE, and the tile product at Greenland and
            Antarctica depth beside its plain version and torch.bmm, their
-           counters set to 0 just before the timed runs.
+           counters set to 0 just before the timed runs;
+13. k2probe the dest-small probe kernels (csrc/k2probe.cu: slots, group,
+           batch and ablate variants of K2) on both sheets' EvI at nv = 16
+           and 64 through icebin_tpu_torch.tools.probe_k2, beside K2, its
+           stream floor and cuSPARSE, each counter set to 0 just before its
+           timed runs; every variant bit for bit its plain version and its
+           rerun, slots(1) and group(1) bit for bit K2, raw error < 5e-7;
+           then how K2's time divides.
+
+The timing helpers, the bound and the config #3 and #5 lattices come from
+icebin_tpu_torch.tools.common, which the port's probes share.
 
 The last three lines are the kernels' JSON summary (each kernel's launches
 on its path, error against its plain version, ms beside the plain
@@ -87,27 +97,23 @@ import warnings
 
 import numpy as np
 
-SEARISE = "+proj=stere +lat_0=90 +lat_ts=71 +lon_0=-39 +ellps=WGS84"
-HCDEFS = [0.0, 500.0, 1000.0, 2000.0, 3500.0]
+from icebin_tpu_torch.tools.common import (HCDEFS, PEAK_BYTES_S,
+                                           antarctica_spec, bound, card_name,
+                                           greenland_specs, spmm_bound,
+                                           time_ms)
+from icebin_tpu_torch.tools.probe_k2 import LIVE
+
 DT = 86400.0 * 30
 REGEN = 3
 TRANSPORT_TOL = 1e-10
 RAW_TOL = 5e-7            # tests/test_accuracy_contract.py's 6-pass bound
 COLSUM_TOL = 1e-12
 HEX_R = 3102.0            # hexagon circumradius, m: 25.0 km2 per cell
-# H100 SXM data sheet at 700 W: HBM rate and f32 rate outside the tensor
-# cores, for each kernel's least time (bound_ms)
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOP_S = 67e12
 ROOF_SHAPES = ((2048, 32 * 128), (524288, 128))   # 34 MB and 268 MB f32
-ANTARCTICA = "+proj=stere +lat_0=-90 +lat_ts=-71 +lon_0=0 +ellps=WGS84"
-ANT_R = 2800e3            # bench.py:101-113's half-width: 1120 x 1120 at 5 km
 SHEETS = ("greenland", "antarctica")
 MS_N1, MS_N2 = 16, 48     # steps of the two-point steps/s, as bench.py
 PRODS_ROWS = (2048, 15360)   # tools/probe_prods_scale.py: 44 and 330 MB
 PRODS_TOL = 130 * 2.0 ** -24  # f32 FMA chain of 128 terms, of sum |T * F|
-SLEEP_CYCLES = 200_000_000   # ~0.1 s of the card's clock: longer than the
-                             # host takes to enqueue a timed run
 CARD = ""
 
 
@@ -125,40 +131,6 @@ def say(msg):
     print(f"[{CARD}] {msg}", flush=True)
 
 
-def nvidia_smi():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0].strip()
-
-
-def time_ms(fn, reps):
-    """Device time of one call of ``fn``, CUDA events over ``reps`` calls
-    after a warm-up.  A sleep kernel queued first keeps the card busy while
-    the host enqueues the calls, so a kernel shorter than its launch is
-    timed on the device, not at the host's launch rate."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def bound(nbytes, nops):
-    """(least ms, what bounds it): bytes over the HBM rate or f32
-    operations over the f32 rate, whichever is larger."""
-    b, o = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * nops / PEAK_F32_FLOP_S
-    return (b, "bytes") if b >= o else (o, "operations")
-
-
 def wall_ms(fn):
     """Host time of ``fn`` up to a device synchronisation."""
     import torch
@@ -167,16 +139,6 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, 1e3 * (time.perf_counter() - t)
-
-
-def greenland_specs(res_km=5.0):
-    """bench.py's config #3 lattice: 304 x 544 cells at 5 km."""
-    from icebin_tpu_torch.grid import GridSpecXY, modele_lonlat_grid
-    nx, ny = int(round(1520 / res_km)), int(round(2720 / res_km))
-    specI = GridSpecXY(xb=np.linspace(-650e3, 870e3, nx + 1),
-                       yb=np.linspace(-3350e3, -630e3, ny + 1),
-                       projection=SEARISE, name=f"greenland_{res_km:g}km")
-    return modele_lonlat_grid(144, 90), specI
 
 
 def forcing(nE, seed=0):
@@ -360,17 +322,6 @@ def phase_main(specA, specI, device, counters):
 
 
 # -- phase 4: the regrid kernels on the real matrices ----------------------
-
-def spmm_bound(csr, nv):
-    """Least time of one apply of ``csr`` to nv fields: rowptr, cols, vals,
-    winv, the source rows the matrix reads and the whole output, each once;
-    two operations per nonzero and field."""
-    import torch
-    nnz = csr.vals.numel()
-    used = torch.unique(csr.cols).numel()
-    return bound(4 * (csr.n_dst + 1 + 2 * nnz + csr.n_dst)
-                 + 4 * nv * (used + csr.n_dst), 2 * nnz * nv)
-
 
 def check_spmm(kern, csr, A, w, tag, rng, nv=16):
     """``kern`` on ``csr`` (the pack of sparse matrix ``A``, destination
@@ -867,16 +818,6 @@ def phase_roof(device):
 
 # -- phase 10: BASELINE config #5, Greenland + Antarctica on one A grid ----
 
-def antarctica_spec(res_km=5.0):
-    """bench.py:101-113's config #5 lattice: 1120 x 1120 cells of 5 km over
-    [-2800, 2800] km in the south polar stereographic plane."""
-    from icebin_tpu_torch.grid import GridSpecXY
-    n = int(round(2 * ANT_R / (res_km * 1e3)))
-    b = np.linspace(-ANT_R, ANT_R, n + 1)
-    return GridSpecXY(xb=b, yb=b, projection=ANTARCTICA,
-                      name=f"antarctica_{res_km:g}km")
-
-
 def check_ledger(rows, sheets, what):
     """Every row's transport identity, mass and energy, for every sheet."""
     worst = 0.0
@@ -1240,32 +1181,155 @@ def phase_floors(sheets, device):
     return res
 
 
+# -- phase 13: the dest-small probe kernels --------------------------------
+
+K2PROBE_SITES = {    # each probe kernel's TPU sites (pallas_call lines)
+    "spmm_small_slots": "tools/probe_slots.py:106",
+    "spmm_small_group": "tools/probe_group.py:111",
+    "spmm_small_batch": ("tools/probe_batch.py:136 and "
+                         "tools/probe_batch2.py:118"),
+    "spmm_small_ablate": "tools/probe_ablate.py:261",
+}
+
+
+def k2_split(by, tag):
+    """Print how K2's time divides on one matrix and nv: its stream floor,
+    then what K2 on its live rows alone and each variant's best parameter
+    save (+) or cost (-)."""
+    def ms(name, p=None):
+        return by[(name, p)]["ms"]
+
+    def best(name):
+        return min((c for (k, _), c in by.items() if k == name),
+                   key=lambda c: c["ms"])
+
+    k2 = ms("spmm_dest_small")
+    parts = [("empty rows' warps (K2 - K2 on the live rows alone)",
+              k2 - ms("spmm_dest_small", LIVE)),
+             ("f64 arithmetic (K2 - ablate f32)",
+              k2 - ms("spmm_small_ablate", "f32")),
+             ("shuffle tree (K2 - ablate smem)",
+              k2 - ms("spmm_small_ablate", "smem"))]
+    for name, what in (("spmm_small_slots", "per-lane load chain"),
+                       ("spmm_small_group", "share of the card in use"),
+                       ("spmm_small_batch",
+                        "per-16-field re-walk and uncoalesced reads")):
+        b = best(name)
+        parts.append((f"{what} (K2 - {name[11:]}({b['param']}))",
+                      k2 - b["ms"]))
+    say(f"k2probe {tag}: K2 {k2:.4f} ms, its stream floor "
+        f"{ms('spmm_floor_small'):.4f} ms, cuSPARSE "
+        f"{ms('torch.sparse.mm'):.4f} ms; "
+        + "; ".join(f"{what} {1e3 * d:+.1f} us" for what, d in parts))
+
+
+def phase_k2probe(sheets, device):
+    """The dest-small probe (icebin_tpu_torch.tools.probe_k2.run_cases) on
+    each sheet's EvI at nv = 16 and 64, fields with NaN and inf sources:
+    K2, its stream floor, every variant at every parameter and
+    torch.sparse.mm, each wrapper's launch counter set to 0 just before its
+    timed calls and read just after.  Every variant bit for bit its plain
+    version and its rerun (then also on probe_k2.order_case's cancelling
+    data, which tells the summation orders apart), slots(1) and group(1)
+    bit for bit K2, the f64 variants within RAW_TOL of the f64 oracle (the
+    f32 ablation's error printed, not gated).  Returns {kernel: its JSON
+    row's numbers}: ms, plain ms and bounds at Greenland EvI, nv = 16, its
+    best parameter there (``param``); launches summed and max_abs_err the
+    worst over every case of the phase."""
+    import torch
+    from icebin_tpu_torch.tools.probe_k2 import (cases, fields, order_case,
+                                                 run_cases)
+    res, launches, worst = {}, {}, {}
+    for sheet, sc in sheets.items():
+        M = sc.rm.matrix("EvI", sc.cfg.params)
+        csr = sc.mat("EvI").pack.small
+        for nv in (16, 64):
+            tag = f"{sheet} EvI nv={nv}"
+            by = {}
+            for c in run_cases(M, csr, fields(csr.n_src, nv, seed=nv)):
+                name, p = c["kernel"], c["param"]
+                by[(name, p)] = c
+                what = name if p is None else f"{name}({p})"
+                if name == "torch.sparse.mm":
+                    say(f"k2probe {tag}: {what} (cuSPARSE) {c['ms']:.4f} ms, "
+                        f"raw error vs f64 oracle {c['raw_err']:.3e}, max "
+                        f"|cuSPARSE - K2| {c['max_abs_err']:.3e}")
+                    continue
+                raw = ("-" if c["raw_err"] is None
+                       else f"{c['raw_err']:.3e}")
+                say(f"k2probe {tag}: {what} {c['ms']:.4f} ms, bound "
+                    f"{c['bound_ms']:.4f} ms ({c['bound_by']}), plain "
+                    f"{c['plain_ms']:.3f} ms (one call), max |kernel - "
+                    f"plain| {c['max_abs_err']:.3e}, rerun bit-identical "
+                    f"{c['rerun_identical']}, bit for bit K2 "
+                    f"{c['equals_k2']}, raw error vs f64 oracle {raw}, "
+                    f"launches in the timed calls {c['launches']}")
+                check(c["launches"] > 0, f"{what} was not launched")
+                launches[name] = launches.get(name, 0) + c["launches"]
+                worst[name] = max(worst.get(name, 0.0), c["max_abs_err"])
+                if p == LIVE:
+                    check(c["equals_k2"], f"{what} {tag} is not K2's bits")
+                if not name.startswith("spmm_small_"):
+                    continue
+                check(c["max_abs_err"] == 0.0,
+                      f"{what} {tag} vs plain {c['max_abs_err']:.3e}")
+                check(c["rerun_identical"], f"{what} {tag} rerun differs")
+                if p == 1:
+                    check(c["equals_k2"], f"{what} {tag} is not K2's bits")
+                if p != "f32":
+                    check(c["raw_err"] < RAW_TOL,
+                          f"{what} {tag} raw error {c['raw_err']:.3e}")
+            k2_split(by, tag)
+            if (sheet, nv) == ("greenland", 16):
+                lib_ms = by[("torch.sparse.mm", None)]["ms"]
+                for name in K2PROBE_SITES:
+                    b = min((c for (k, _), c in by.items() if k == name),
+                            key=lambda c: c["ms"])
+                    res[name] = dict(
+                        {k: b[k] for k in ("param", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
+                        library_ms=(None if name == "spmm_small_ablate"
+                                    else lib_ms))
+    same = []
+    for nv in (1, 20):
+        csr, x = order_case(nv, nv, device)
+        xt = torch.as_tensor(x, device=device)
+        for name, p, kern, ref, _ in cases():
+            if name.startswith("spmm_small_"):
+                got, want = kern(csr, xt, p), ref(csr, xt, p)
+                same.append(torch.equal(got, want))
+                worst[name] = max(worst[name],
+                                  (got - want).abs().nan_to_num().max()
+                                  .item())
+    for name in res:
+        res[name].update(launches=launches[name], max_abs_err=worst[name])
+    say(f"k2probe: on cancelling data (probe_k2.order_case, nv = 1 and 20) "
+        f"every variant bit for bit its plain version: {all(same)}")
+    check(all(same), "a probe kernel's summation order is not its plain "
+                     "version's")
+    return res
+
+
 def main():
     global CARD
-    try:
-        import torch
-    except ImportError:
-        fail("PyTorch is not installed")
+    import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
-    try:
-        from icebin_tpu_torch.ops import _build
-        from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
-        from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
-                                               clip_areas_centroids_poly)
-    except ImportError as e:
-        fail(f"run from the root of a checkout ({e})")
+    from icebin_tpu_torch.ops import _build
+    from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+    from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
+                                           clip_areas_centroids_poly)
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    CARD = nvidia_smi()
+    CARD = card_name()
     t = time.perf_counter()
     _build.library()
     say(f"build: {1e3 * (time.perf_counter() - t):.1f} ms, "
         f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             say(f"ptxas: {line.strip()}")
 
     specA, specI = greenland_specs()
@@ -1283,13 +1347,15 @@ def main():
     ms = phase_multisheet(specA, specI, cp.gr.sheets["greenland"].exchange,
                           device, counters)
     phase_modele(ms.gr, device, counters)
-    floors = phase_floors({"greenland": cp.sheets["greenland"],
-                           "antarctica": ms.sheets["antarctica"]}, device)
+    sheets = {"greenland": cp.sheets["greenland"],
+              "antarctica": ms.sheets["antarctica"]}
+    floors = phase_floors(sheets, device)
+    probes = phase_k2probe(sheets, device)
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]
     launches["stream_reduce"] = roof["launches"]
-    for name, res in floors.items():
+    for name, res in (*floors.items(), *probes.items()):
         launches[name] = res["launches"]
 
     def row(name, source, replaces, res):
@@ -1327,7 +1393,9 @@ def main():
             "tools/probe_floor.py:84", floors["spmm_floor_ice"]),
         row("tile_prods", "icebin_tpu_torch/csrc/prods.cu",
             "tools/probe_prods_scale.py:69", floors["tile_prods"]),
-    ]
+    ] + [dict(row(name, "icebin_tpu_torch/csrc/k2probe.cu", site,
+                  probes[name]), param=probes[name]["param"])
+         for name, site in K2PROBE_SITES.items()]
     say(f"whole script {time.perf_counter() - t0:.1f} s (the build "
         f"included)")
     print(json.dumps({"kernels": kernels}))

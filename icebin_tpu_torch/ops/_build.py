@@ -41,6 +41,10 @@ _SIGNATURES = {
     "spmm_floor_small": ((_P,) * 6 + (_I,) * 2 + (_P,), _I),
     "spmm_floor_ice": ((_P,) * 6 + (_I,) * 2 + (_P,), _I),
     "tile_prods": ((_P,) * 3 + (_I,) + (_P,), _I),
+    "spmm_small_slots": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_small_group": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_small_batch": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_small_ablate": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "icebin_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -17,7 +17,11 @@ interrupted (no float atomics anywhere in a step).  The stream-only floors
 and their plain versions add the same f32 values in the same order, so they
 agree bit for bit; the tile product's f32 multiply-add chain of 128 terms
 agrees with its plain version (f64, rounded once) and with torch.bmm (TF32
-off) within 130 * 2**-24 of sum |T * F|.  A two-sheet coupler on the card
+off) within 130 * 2**-24 of sum |T * F|.  The dest-small probe kernels
+(csrc/k2probe.cu) follow their plain versions' summation orders, so they
+agree bit for bit, also on data whose large terms cancel (any other order
+gives other bits); slots(1) and group(1) are K2's order, bit for bit
+spmm_dest_small.  A two-sheet coupler on the card
 is held to its CPU run as phase 6 of chip_smoke.py holds the toy (1e-5 of
 the ice state, 1e-6 of each ledger row), and the gcmce C ABI on the card
 is bit for bit the adapter driven directly.
@@ -35,12 +39,14 @@ from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                        clip_areas_centroids_poly_ref,
                                        clip_areas_centroids_ref)
 from icebin_tpu_torch.ops.csr import csr_pack
+from icebin_tpu_torch.ops import k2probe as kp
 from icebin_tpu_torch.ops.floor import (spmm_floor_ice, spmm_floor_ice_ref,
                                         spmm_floor_small,
                                         spmm_floor_small_ref)
 from icebin_tpu_torch.ops.prods import tile_prods, tile_prods_ref
 from icebin_tpu_torch.ops.roof import stream_reduce, stream_reduce_ref
 from icebin_tpu_torch.regrid.sparse import WeightedMatrix
+from icebin_tpu_torch.tools import probe_k2
 
 pytestmark = pytest.mark.cuda
 
@@ -459,3 +465,35 @@ def test_gcmce_c_abi_on_the_card(cuda, tmp_path):
                                getattr(direct.coupler.sheets[name].state,
                                        key)), (name, key)
     lib.gcmce_delete(h)
+
+
+K2PROBES = ((kp.spmm_small_slots, kp.spmm_small_slots_ref, kp.SLOTS),
+            (kp.spmm_small_group, kp.spmm_small_group_ref, kp.GROUPS),
+            (kp.spmm_small_batch, kp.spmm_small_batch_ref, kp.BATCH),
+            (kp.spmm_small_ablate, kp.spmm_small_ablate_ref, kp.MODES))
+
+
+@pytest.mark.parametrize("nv", [1, 16, 20, 64])
+def test_k2probe_kernels_match_plain(cuda, nv):
+    """Every dest-small probe kernel at every parameter bit for bit its
+    plain version, on the synthetic EvI (a row of 600 nonzeros, NaN and inf
+    sources) and on probe_k2.order_case's cancelling data; reruns
+    identical; slots(1) and group(1) bit for bit spmm_dest_small."""
+    M = probe_k2.synth(seed=nv)
+    evi = (csr_pack(M, nv=16, device=cuda).small,
+           torch.as_tensor(probe_k2.fields(M.shape[1], nv, seed=nv),
+                           device=cuda))
+    csr, x = probe_k2.order_case(nv, nv, device=cuda)
+    for c, xt in (evi, (csr, torch.as_tensor(x, device=cuda))):
+        k2 = spmm_dest_small(c, xt)
+        for kern, ref, params in K2PROBES:
+            for p in params:
+                n0 = kern.launches
+                got = kern(c, xt, p)
+                assert kern.launches == n0 + 1
+                want = ref(c, xt, p)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (kern.__name__, p)
+                assert torch.equal(got, kern(c, xt, p)), (kern.__name__, p)
+                if p == 1:
+                    assert torch.equal(got, k2), (kern.__name__, p)
