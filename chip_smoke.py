@@ -74,7 +74,16 @@ Phases, each of which exits non-zero on failure:
            stream floor and cuSPARSE, each counter set to 0 just before its
            timed runs; every variant bit for bit its plain version and its
            rerun, slots(1) and group(1) bit for bit K2, raw error < 5e-7;
-           then how K2's time divides.
+           then how K2's time divides;
+14. k1probe the dest-ice probe kernels (csrc/k1probe.cu: slots, batch,
+           ablate, stage and store variants of K1) on both sheets' IvE at
+           nv = 16 and 64 through icebin_tpu_torch.tools.probe_k1, beside
+           K1, K1 as apply_ice runs it (the input's transpose copied), its
+           stream floor and cuSPARSE (for K1's function and for each lower
+           stage's), each counter set to 0 just before its timed runs;
+           every variant bit for bit its plain version and its rerun (also
+           on cancelling data), the variants in K1's order bit for bit K1,
+           raw error < 5e-7; then how K1's time divides.
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -93,14 +102,14 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 import numpy as np
 
 from icebin_tpu_torch.tools.common import (HCDEFS, PEAK_BYTES_S,
                                            antarctica_spec, bound, card_name,
-                                           greenland_specs, spmm_bound,
-                                           time_ms)
+                                           greenland_specs, library_spmm,
+                                           spmm_bound, time_ms)
+from icebin_tpu_torch.tools.probe_k1 import APPLY
 from icebin_tpu_torch.tools.probe_k2 import LIVE
 
 DT = 86400.0 * 30
@@ -348,16 +357,9 @@ def check_spmm(kern, csr, A, w, tag, rng, nv=16):
     ms = time_ms(lambda: kern(csr, xt), 50)
     plain_ms = time_ms(lambda: spmm_ref(csr, xt), 10)
     per_row = (csr.rowptr[1:] - csr.rowptr[:-1])
-    rows = torch.repeat_interleave(
-        torch.arange(csr.n_dst, device=device), per_row.long())
-    with warnings.catch_warnings():      # PyTorch's beta notice for CSR
-        warnings.simplefilter("ignore")
-        S = torch.sparse_csr_tensor(csr.rowptr.long(), csr.cols.long(),
-                                    csr.vals * csr.winv[rows],
-                                    size=(csr.n_dst, csr.n_src))
-    xc = torch.where(torch.isfinite(xt), xt, 0.0)
-    d_lib = (torch.sparse.mm(S, xc) - got).abs().max().item()
-    lib_ms = time_ms(lambda: torch.sparse.mm(S, xc), 50)
+    spmm = library_spmm(csr, xt)
+    d_lib = (spmm() - got).abs().max().item()
+    lib_ms = time_ms(spmm, 50)
     bound_ms, bound_by = spmm_bound(csr, nv)
     say(f"{kern.__name__} {tag}: ({csr.n_src} x {nv}) -> ({csr.n_dst} x "
         f"{nv}), "
@@ -1223,91 +1225,174 @@ def k2_split(by, tag):
         + "; ".join(f"{what} {1e3 * d:+.1f} us" for what, d in parts))
 
 
-def phase_k2probe(sheets, device):
-    """The dest-small probe (icebin_tpu_torch.tools.probe_k2.run_cases) on
-    each sheet's EvI at nv = 16 and 64, fields with NaN and inf sources:
-    K2, its stream floor, every variant at every parameter and
-    torch.sparse.mm, each wrapper's launch counter set to 0 just before its
-    timed calls and read just after.  Every variant bit for bit its plain
-    version and its rerun (then also on probe_k2.order_case's cancelling
-    data, which tells the summation orders apart), slots(1) and group(1)
-    bit for bit K2, the f64 variants within RAW_TOL of the f64 oracle (the
-    f32 ablation's error printed, not gated).  Returns {kernel: its JSON
-    row's numbers}: ms, plain ms and bounds at Greenland EvI, nv = 16, its
-    best parameter there (``param``); launches summed and max_abs_err the
-    worst over every case of the phase."""
-    import torch
-    from icebin_tpu_torch.tools.probe_k2 import (cases, fields, order_case,
-                                                 run_cases)
+# -- phase 14: the dest-ice probe kernels ----------------------------------
+
+K1PROBE_SITES = {    # each probe kernel's TPU sites (pallas_call lines)
+    "spmm_ice_slots": "tools/probe_slots.py:161",
+    "spmm_ice_batch": ("tools/probe_batch.py:207 and "
+                       "tools/probe_batch2.py:184"),
+    "spmm_ice_ablate": ("tools/probe_ablate.py:182 and "
+                        "tools/probe_manual6.py:149"),
+    "spmm_ice_stage": "tools/probe_ice_bisect.py:119",
+    "spmm_ice_store": ("tools/probe_donate.py:71 and "
+                       "tools/probe_rmw.py:105"),
+}
+
+
+def k1_split(by, tag):
+    """Print how K1's time divides on one matrix and nv: its stream floor
+    and the stages' increments up to K1, then what each variant's best
+    parameter saves (+) or costs (-); the allocation of K1's output in host
+    wall-clock time, which device time cannot see."""
+    def ms(name, p=None, key="ms"):
+        return by[(name, p)][key]
+
+    def best(name):
+        return min((c for (k, _), c in by.items() if k == name),
+                   key=lambda c: c["ms"])
+
+    k1 = ms("spmm_dest_ice")
+    ladder = [("floor", ms("spmm_floor_ice"))] + [
+        (lv, ms("spmm_ice_stage", lv))
+        for lv in ("gather", "clean", "weights")] + [("scale (K1)", k1)]
+    steps = ", ".join(f"{b[0]} {1e3 * (b[1] - a[1]):+.1f}"
+                      for a, b in zip(ladder, ladder[1:]))
+    parts = [("f64 arithmetic (K1 - ablate f32)",
+              k1 - ms("spmm_ice_ablate", "f32")),
+             ("layout (K1 - ablate row)", k1 - ms("spmm_ice_ablate", "row"))]
+    for name, what in (("spmm_ice_slots", "dependent add chain"),
+                       ("spmm_ice_batch", "staging")):
+        b = best(name)
+        parts.append((f"{what} (K1 - {name[9:]}({b['param']}))",
+                      k1 - b["ms"]))
+    parts.append(("read before write (K1 - store rmw)",
+                  k1 - ms("spmm_ice_store", "rmw")))
+    wall = ms("spmm_dest_ice", key="host_ms")
+    into = ms("spmm_ice_store", "into", "host_ms")
+    via = ms("spmm_dest_ice", APPLY)
+    fields = ms("spmm_ice_store", "fields")
+    say(f"k1probe {tag}: K1 {k1:.4f} ms, its stream floor "
+        f"{ms('spmm_floor_ice'):.4f} ms, cuSPARSE "
+        f"{ms('torch.sparse.mm'):.4f} ms; stages over the floor (us): "
+        f"{steps}; "
+        + "; ".join(f"{what} {1e3 * d:+.1f} us" for what, d in parts)
+        + f"; allocation, host wall clock of a synchronised call (K1 "
+        f"{wall:.4f} ms - store into {into:.4f} ms) {1e3 * (wall - into):+.1f}"
+        f" us; K1 as in apply_ice (the input's transpose copied) {via:.4f} "
+        f"ms against store fields {fields:.4f} ms "
+        f"({1e3 * (via - fields):+.1f} us)")
+
+
+# -- phases 13 and 14: one probe run each ------------------------------
+
+def phase_probe(probe, base, matrix, side, sites, split, sheets, device):
+    """The probe module ``probe`` (tools/probe_k2 or tools/probe_k1) of the
+    regrid kernel ``base`` ("K2" or "K1") on each sheet's ``matrix`` ("EvI"
+    or "IvE", its pack's ``side`` CSR) at nv = 16 and 64, fields with NaN
+    and inf sources, each wrapper's launch counter set to 0 just before its
+    timed calls and read just after.  Every variant (the kernels of
+    ``sites``) bit for bit its plain version and its rerun, then also on
+    probe_k2.order_case's cancelling data, which tells the summation orders
+    apart; on the real matrices every case in ``base``'s order bit for bit
+    ``base`` and those with f64 sums within RAW_TOL of the f64 oracle (the
+    f32 ablation's error printed, not gated); ``split`` prints how
+    ``base``'s time divides.
+    Returns {kernel: its JSON row's numbers}: ms, plain ms and bounds at
+    Greenland, nv = 16, its best parameter there (``param``), as library_ms
+    the ms of the cuSPARSE case that computes that parameter's function
+    (the probe's torch.sparse.mm case of that parameter, else of
+    ``base``'s function); launches summed and max_abs_err the worst over
+    every case of the phase."""
+    from icebin_tpu_torch.tools.probe_k2 import fields, order_case
+    key = f"equals_{base.lower()}"
+    in_order = {(name, p) for name, p, *_, o in probe.cases() if o}
     res, launches, worst = {}, {}, {}
+
+    def check_case(c, what, tag, against_base=True):
+        name, p = c["kernel"], c["param"]
+        if against_base and (name, p) in in_order:
+            check(c[key], f"{what} {tag} is not {base}'s bits")
+        if c["raw_err"] is not None and p != "f32":
+            check(c["raw_err"] < RAW_TOL,
+                  f"{what} {tag} raw error {c['raw_err']:.3e}")
+        if name in sites:
+            worst[name] = max(worst.get(name, 0.0), c["max_abs_err"])
+            check(c["equals_plain"],
+                  f"{what} {tag} vs plain {c['max_abs_err']:.3e}")
+            check(c["rerun_identical"], f"{what} {tag} rerun differs")
+
     for sheet, sc in sheets.items():
-        M = sc.rm.matrix("EvI", sc.cfg.params)
-        csr = sc.mat("EvI").pack.small
+        M = sc.rm.matrix(matrix, sc.cfg.params)
+        csr = getattr(sc.mat(matrix).pack, side)
         for nv in (16, 64):
-            tag = f"{sheet} EvI nv={nv}"
+            tag = f"{sheet} {matrix} nv={nv}"
             by = {}
-            for c in run_cases(M, csr, fields(csr.n_src, nv, seed=nv)):
+            for c in probe.run_cases(M, csr, fields(csr.n_src, nv, seed=nv)):
                 name, p = c["kernel"], c["param"]
                 by[(name, p)] = c
                 what = name if p is None else f"{name}({p})"
                 if name == "torch.sparse.mm":
-                    say(f"k2probe {tag}: {what} (cuSPARSE) {c['ms']:.4f} ms, "
-                        f"raw error vs f64 oracle {c['raw_err']:.3e}, max "
-                        f"|cuSPARSE - K2| {c['max_abs_err']:.3e}")
+                    of = base if p is None else f"stage {p}"
+                    raw = ("" if c["raw_err"] is None else
+                           f", raw error vs f64 oracle {c['raw_err']:.3e}")
+                    say(f"{base.lower()}probe {tag}: {what} (cuSPARSE) "
+                        f"{c['ms']:.4f} ms{raw}, max |cuSPARSE - {of}| "
+                        f"{c['max_abs_err']:.3e}")
                     continue
                 raw = ("-" if c["raw_err"] is None
                        else f"{c['raw_err']:.3e}")
-                say(f"k2probe {tag}: {what} {c['ms']:.4f} ms, bound "
-                    f"{c['bound_ms']:.4f} ms ({c['bound_by']}), plain "
+                say(f"{base.lower()}probe {tag}: {what} {c['ms']:.4f} ms, "
+                    f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}), plain "
                     f"{c['plain_ms']:.3f} ms (one call), max |kernel - "
-                    f"plain| {c['max_abs_err']:.3e}, rerun bit-identical "
-                    f"{c['rerun_identical']}, bit for bit K2 "
-                    f"{c['equals_k2']}, raw error vs f64 oracle {raw}, "
-                    f"launches in the timed calls {c['launches']}")
+                    f"plain| {c['max_abs_err']:.3e}, bit for bit plain "
+                    f"{c['equals_plain']}, rerun bit-identical "
+                    f"{c['rerun_identical']}, bit for bit {base} {c[key]}, "
+                    f"raw error vs f64 oracle {raw}, launches in the timed "
+                    f"calls {c['launches']}")
                 check(c["launches"] > 0, f"{what} was not launched")
-                launches[name] = launches.get(name, 0) + c["launches"]
-                worst[name] = max(worst.get(name, 0.0), c["max_abs_err"])
-                if p == LIVE:
-                    check(c["equals_k2"], f"{what} {tag} is not K2's bits")
-                if not name.startswith("spmm_small_"):
-                    continue
-                check(c["max_abs_err"] == 0.0,
-                      f"{what} {tag} vs plain {c['max_abs_err']:.3e}")
-                check(c["rerun_identical"], f"{what} {tag} rerun differs")
-                if p == 1:
-                    check(c["equals_k2"], f"{what} {tag} is not K2's bits")
-                if p != "f32":
-                    check(c["raw_err"] < RAW_TOL,
-                          f"{what} {tag} raw error {c['raw_err']:.3e}")
-            k2_split(by, tag)
+                if name in sites:
+                    launches[name] = launches.get(name, 0) + c["launches"]
+                check_case(c, what, tag)
+            split(by, tag)
             if (sheet, nv) == ("greenland", 16):
-                lib_ms = by[("torch.sparse.mm", None)]["ms"]
-                for name in K2PROBE_SITES:
+                for name in sites:
                     b = min((c for (k, _), c in by.items() if k == name),
                             key=lambda c: c["ms"])
+                    lib = by.get(("torch.sparse.mm", b["param"]),
+                                 by[("torch.sparse.mm", None)])
                     res[name] = dict(
                         {k: b[k] for k in ("param", "ms", "plain_ms",
                                            "bound_ms", "bound_by")},
-                        library_ms=(None if name == "spmm_small_ablate"
-                                    else lib_ms))
-    same = []
+                        library_ms=lib["ms"])
     for nv in (1, 20):
         csr, x = order_case(nv, nv, device)
-        xt = torch.as_tensor(x, device=device)
-        for name, p, kern, ref, _ in cases():
-            if name.startswith("spmm_small_"):
-                got, want = kern(csr, xt, p), ref(csr, xt, p)
-                same.append(torch.equal(got, want))
-                worst[name] = max(worst[name],
-                                  (got - want).abs().nan_to_num().max()
-                                  .item())
+        for c in probe.run_cases(None, csr, x, reps=0):
+            if c["kernel"] == "torch.sparse.mm":
+                continue
+            check_case(c, f"{c['kernel']}({c['param']})",
+                       f"order_case nv={nv}", against_base=False)
     for name in res:
         res[name].update(launches=launches[name], max_abs_err=worst[name])
-    say(f"k2probe: on cancelling data (probe_k2.order_case, nv = 1 and 20) "
-        f"every variant bit for bit its plain version: {all(same)}")
-    check(all(same), "a probe kernel's summation order is not its plain "
-                     "version's")
+    say(f"{base.lower()}probe: on cancelling data (probe_k2.order_case, nv = "
+        f"1 and 20) every variant bit for bit its plain version and its "
+        f"rerun")
     return res
+
+
+def phase_k2probe(sheets, device):
+    """Phase 13: the dest-small probe (tools/probe_k2) on each sheet's EvI,
+    through phase_probe."""
+    from icebin_tpu_torch.tools import probe_k2
+    return phase_probe(probe_k2, "K2", "EvI", "small", K2PROBE_SITES,
+                       k2_split, sheets, device)
+
+
+def phase_k1probe(sheets, device):
+    """Phase 14: the dest-ice probe (tools/probe_k1) on each sheet's IvE,
+    through phase_probe."""
+    from icebin_tpu_torch.tools import probe_k1
+    return phase_probe(probe_k1, "K1", "IvE", "ice", K1PROBE_SITES,
+                       k1_split, sheets, device)
 
 
 def main():
@@ -1351,11 +1436,14 @@ def main():
               "antarctica": ms.sheets["antarctica"]}
     floors = phase_floors(sheets, device)
     probes = phase_k2probe(sheets, device)
+    t14 = time.perf_counter()
+    probes1 = phase_k1probe(sheets, device)
+    say(f"k1probe: phase 14 took {time.perf_counter() - t14:.1f} s")
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]
     launches["stream_reduce"] = roof["launches"]
-    for name, res in (*floors.items(), *probes.items()):
+    for name, res in (*floors.items(), *probes.items(), *probes1.items()):
         launches[name] = res["launches"]
 
     def row(name, source, replaces, res):
@@ -1395,7 +1483,12 @@ def main():
             "tools/probe_prods_scale.py:69", floors["tile_prods"]),
     ] + [dict(row(name, "icebin_tpu_torch/csrc/k2probe.cu", site,
                   probes[name]), param=probes[name]["param"])
-         for name, site in K2PROBE_SITES.items()]
+         for name, site in K2PROBE_SITES.items()] + [
+        # store("into") launches spmm.cu's K1 into a held buffer
+        dict(row(name, "icebin_tpu_torch/csrc/" + (
+            "spmm.cu" if probes1[name]["param"] == "into" else "k1probe.cu"),
+                 site, probes1[name]), param=probes1[name]["param"])
+        for name, site in K1PROBE_SITES.items()]
     say(f"whole script {time.perf_counter() - t0:.1f} s (the build "
         f"included)")
     print(json.dumps({"kernels": kernels}))

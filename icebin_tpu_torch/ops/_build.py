@@ -45,6 +45,11 @@ _SIGNATURES = {
     "spmm_small_group": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "spmm_small_batch": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "spmm_small_ablate": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_ice_slots": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_ice_batch": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_ice_ablate": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_ice_stage": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_ice_store": ((_P,) * 6 + (_I,) * 4 + (_P,), _I),
     "icebin_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -46,27 +46,37 @@ def spmm_ref(csr: Csr, x: torch.Tensor, scale: bool = True) -> torch.Tensor:
     return out.to(torch.float32)
 
 
-def _check_operands(csr: Csr, x: torch.Tensor) -> None:
+def _check_operands(csr: Csr, x: torch.Tensor, src_axis: int = 0) -> None:
+    """A contiguous f32 field on the matrix's device with n_src along
+    ``src_axis``: (n_src, nv), or (nv, n_src) for ``src_axis=1``."""
     if (x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous()
-            or x.shape[0] != csr.n_src):
-        raise ValueError(f"spmm needs a contiguous f32 (n_src={csr.n_src}, "
-                         f"nv) field, got {x.dtype} {tuple(x.shape)}")
+            or x.shape[src_axis] != csr.n_src):
+        want = "(n_src, nv)" if src_axis == 0 else "(nv, n_src)"
+        raise ValueError(f"spmm needs a contiguous f32 {want} field with "
+                         f"n_src={csr.n_src}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
     if x.device != csr.device:
         raise ValueError(f"field on {x.device}, matrix on {csr.device}")
 
 
-def _launch(name: str, csr: Csr, x: torch.Tensor, *flags: int) -> torch.Tensor:
-    """Launch the CSR kernel ``name`` on x's stream; ``flags`` are the int
-    arguments after ``nv`` (the regrid kernels' ``scale``)."""
-    out = torch.empty((csr.n_dst, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
+def _launch(name: str, csr: Csr, x: torch.Tensor, *flags: int,
+            out: torch.Tensor | None = None,
+            nv: int | None = None) -> torch.Tensor:
+    """Launch the CSR kernel ``name`` on x's stream into ``out`` (a new
+    (n_dst, nv) f32 tensor by default); ``nv`` defaults to x's width and
+    ``flags`` are the int arguments after it (the regrid kernels'
+    ``scale``)."""
+    nv = x.shape[1] if nv is None else nv
+    if out is None:
+        out = torch.empty((csr.n_dst, nv), dtype=torch.float32,
+                          device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = getattr(lib, name)(
             csr.rowptr.data_ptr(), csr.cols.data_ptr(), csr.vals.data_ptr(),
             csr.winv.data_ptr(), x.data_ptr(), out.data_ptr(), csr.n_dst,
-            x.shape[1], *flags, stream)
+            nv, *flags, stream)
     _build.check(status, name)
     return out
 

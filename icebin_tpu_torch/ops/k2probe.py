@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from icebin_tpu_torch.ops.apply import _check_operands, _launch, on_cpu
+from icebin_tpu_torch.ops._probe import variant
 from icebin_tpu_torch.ops.csr import Csr
 from icebin_tpu_torch.ops.floor import _fold
 
@@ -131,40 +131,30 @@ def spmm_small_ablate_ref(csr: Csr, x: torch.Tensor,
     return _scaled(csr, live, _in_order(acc[:, 0]), x.shape[1])
 
 
-def _run(wrap, ref, csr, x, param, allowed, flag):
-    _check_operands(csr, x)
-    if param not in allowed:
-        raise ValueError(f"{wrap.__name__}: no kernel instance for {param!r} "
-                         f"(one of {allowed})")
-    if on_cpu(x, wrap.__name__):
-        return ref(csr, x, param)
-    out = _launch(wrap.__name__, csr, x, flag)
-    wrap.launches += 1
-    return out
-
-
 def spmm_small_slots(csr: Csr, x: torch.Tensor, nslot: int) -> torch.Tensor:
     """K2 with ``nslot`` accumulator chains per lane."""
-    return _run(spmm_small_slots, spmm_small_slots_ref, csr, x, nslot, SLOTS,
-                nslot)
+    return variant(spmm_small_slots, spmm_small_slots_ref, csr, x, nslot,
+                   SLOTS, nslot)
 
 
 def spmm_small_group(csr: Csr, x: torch.Tensor, g: int) -> torch.Tensor:
     """K2 with ``g`` warps per row and a fixed second pass."""
-    return _run(spmm_small_group, spmm_small_group_ref, csr, x, g, GROUPS, g)
+    return variant(spmm_small_group, spmm_small_group_ref, csr, x, g, GROUPS,
+                   g)
 
 
 def spmm_small_batch(csr: Csr, x: torch.Tensor, fb: int) -> torch.Tensor:
     """K2 gathering 32 source rows' ``fb`` fields into shared memory, then
     contracting."""
-    return _run(spmm_small_batch, spmm_small_batch_ref, csr, x, fb, BATCH, fb)
+    return variant(spmm_small_batch, spmm_small_batch_ref, csr, x, fb, BATCH,
+                   fb)
 
 
 def spmm_small_ablate(csr: Csr, x: torch.Tensor, mode: str) -> torch.Tensor:
     """K2 with its sums in f32 (``"f32"``) or without its shuffle tree
     (``"smem"``)."""
-    return _run(spmm_small_ablate, spmm_small_ablate_ref, csr, x, mode, MODES,
-                MODES.index(mode) if mode in MODES else -1)
+    return variant(spmm_small_ablate, spmm_small_ablate_ref, csr, x, mode,
+                   MODES, MODES.index(mode) if mode in MODES else -1)
 
 
 spmm_small_slots.launches = 0

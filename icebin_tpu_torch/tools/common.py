@@ -1,16 +1,19 @@
 """What the port's instruments and ``chip_smoke.py`` share: the config #3
 and #5 lattices of bench.py, the card's name, device timing with CUDA
-events, and each kernel's least time on the card (its bound)."""
+events, each kernel's least time on the card (its bound), bitwise
+comparison of results, and the one PyTorch call (cuSPARSE) that computes a
+regrid kernel's function."""
 from __future__ import annotations
 
 import subprocess
+import warnings
 
 import numpy as np
 import torch
 
 __all__ = ["HCDEFS", "PEAK_BYTES_S", "PEAK_F32_FLOP_S", "bound",
-           "spmm_bound", "time_once", "time_ms", "card_name",
-           "greenland_specs", "antarctica_spec"]
+           "spmm_bound", "time_once", "time_ms", "card_name", "same",
+           "max_diff", "library_spmm", "greenland_specs", "antarctica_spec"]
 
 HCDEFS = [0.0, 500.0, 1000.0, 2000.0, 3500.0]   # bench.py's 5 classes
 SEARISE = "+proj=stere +lat_0=90 +lat_ts=71 +lon_0=-39 +ellps=WGS84"
@@ -58,14 +61,53 @@ def bound(nbytes, nops):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-def spmm_bound(csr, nv):
+def spmm_bound(csr, nv, vals=True, winv=True, reads_out=False):
     """Least time of one apply of ``csr`` to nv fields: rowptr, cols, vals,
     winv, the source rows the matrix reads and the whole output, each once;
-    two operations per nonzero and field."""
+    two operations per nonzero and field.  A function that does not read
+    ``vals`` (one operation per nonzero and field then) or ``winv`` leaves
+    them out; one that reads its output first (``reads_out``) moves it
+    twice."""
     nnz = csr.vals.numel()
     used = torch.unique(csr.cols).numel()
-    return bound(4 * (csr.n_dst + 1 + 2 * nnz + csr.n_dst)
-                 + 4 * nv * (used + csr.n_dst), 2 * nnz * nv)
+    return bound(4 * (csr.n_dst + 1 + (2 if vals else 1) * nnz
+                      + (csr.n_dst if winv else 0))
+                 + 4 * nv * (used + (2 if reads_out else 1) * csr.n_dst),
+                 (2 if vals else 1) * nnz * nv)
+
+
+def same(a, b):
+    """Bit for bit, signed zeros told apart; a NaN equals any NaN (a
+    function that propagates NaN sources need not keep their payloads)."""
+    bits = a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+    return bool((bits | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def max_diff(a, b):
+    """max |a - b|, 0 where both are equal or both NaN."""
+    d = (a - b).abs()
+    d[(a == b) | (torch.isnan(a) & torch.isnan(b))] = 0.0
+    return float(d.max()) if d.numel() else 0.0
+
+
+def library_spmm(csr, x, vals=True, winv=True, clean=True):
+    """A function of no argument computing, with ``torch.sparse.mm``
+    (cuSPARSE on the card), what a regrid kernel computes from ``csr`` and
+    the (n_src, nv) field ``x``: ``winv`` folded into the values, the
+    non-finite sources cleaned first.  The lower stages of that function
+    leave out the weights (``vals=False``: every value 1), the scale
+    (``winv=False``) or the cleaning (``clean=False``)."""
+    per_row = (csr.rowptr[1:] - csr.rowptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(csr.n_dst, device=x.device),
+                                   per_row)
+    w = csr.vals if vals else torch.ones_like(csr.vals)
+    with warnings.catch_warnings():      # PyTorch's beta notice for CSR
+        warnings.simplefilter("ignore")
+        S = torch.sparse_csr_tensor(csr.rowptr.long(), csr.cols.long(),
+                                    w * csr.winv[rows] if winv else w,
+                                    size=(csr.n_dst, csr.n_src))
+    xc = torch.where(torch.isfinite(x), x, 0.0) if clean else x
+    return lambda: torch.sparse.mm(S, xc)
 
 
 def card_name():

@@ -22,8 +22,8 @@ seed=nv)``, the field ``chip_smoke.py`` phase 13 runs them on.  Prints one
 JSON line per case (kernel and parameter, per ``--nv``): device
 ms (CUDA events over REPS calls after a sleep kernel) beside the bound
 (``spmm_bound``) and the plain version's ms (one call), max |kernel -
-plain|, whether a rerun is bit-identical and whether the result equals
-K2's bit for bit, the raw error against the f64 oracle (max |out - oracle|
+plain| and whether they agree bit for bit, whether a rerun is
+bit-identical and whether the result equals K2's bit for bit, the raw error against the f64 oracle (max |out - oracle|
 / max |oracle| over rows of nonzero weight; none for the floor, which
 computes another function), and the kernel's launches in the timed calls.
 On the CPU every ms is null: a CPU time is not the card's.
@@ -34,17 +34,17 @@ import argparse
 import dataclasses
 import json
 import sys
-import warnings
 
 import numpy as np
 import torch
 
 from icebin_tpu_torch.tools.common import (HCDEFS, antarctica_spec,
                                            card_name, greenland_specs,
+                                           library_spmm, max_diff, same,
                                            spmm_bound, time_ms, time_once)
 
 __all__ = ["REPS", "LIVE", "synth", "fields", "order_case", "evi", "cases",
-           "run_cases", "main"]
+           "raw_error", "run_cases", "main"]
 
 REPS = 50
 #: the parameter of K2's case on the CSR of its live rows alone
@@ -149,59 +149,56 @@ def evi(config, device):
 
 
 def cases():
-    """(kernel, parameter, wrapper, plain version, computes K2's operator)
-    for every case a probe runs, K2 first: on the whole CSR, then on its
-    live rows alone (parameter "live rows"), then its floor."""
+    """(kernel, parameter, wrapper, plain version, computes K2's operator,
+    in K2's order) for every case a probe runs, K2 first: on the whole CSR,
+    then on its live rows alone (parameter "live rows"), then its floor."""
     from icebin_tpu_torch.ops import k2probe as kp
     from icebin_tpu_torch.ops.apply import spmm_dest_small, spmm_ref
     from icebin_tpu_torch.ops.floor import (spmm_floor_small,
                                             spmm_floor_small_ref)
-    out = [("spmm_dest_small", None, spmm_dest_small, spmm_ref, True),
-           ("spmm_dest_small", LIVE, spmm_dest_small, spmm_ref, True),
+    out = [("spmm_dest_small", None, spmm_dest_small, spmm_ref, True, True),
+           ("spmm_dest_small", LIVE, spmm_dest_small, spmm_ref, True, True),
            ("spmm_floor_small", None, spmm_floor_small, spmm_floor_small_ref,
-            False)]
+            False, False)]
     for wrap, ref, params in (
             (kp.spmm_small_slots, kp.spmm_small_slots_ref, kp.SLOTS),
             (kp.spmm_small_group, kp.spmm_small_group_ref, kp.GROUPS),
             (kp.spmm_small_batch, kp.spmm_small_batch_ref, kp.BATCH),
             (kp.spmm_small_ablate, kp.spmm_small_ablate_ref, kp.MODES)):
-        out += [(wrap.__name__, p, wrap, ref, True) for p in params]
+        out += [(wrap.__name__, p, wrap, ref, True, p == 1) for p in params]
     return out
 
 
-def _same(a, b):
-    """Bit for bit, NaN equal to NaN (the floor propagates NaN sources)."""
-    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
-
-
-def _max_diff(a, b):
-    d = (a - b).abs()
-    d[(a == b) | (torch.isnan(a) & torch.isnan(b))] = 0.0
-    return float(d.max()) if d.numel() else 0.0
-
-
-def run_cases(M, csr, x, reps=REPS):
-    """Every case of the probe on ``csr`` (the dest-small CSR of
-    WeightedMatrix ``M``) and the (n_src, nv) f32 numpy field ``x``: a
-    list of dicts (module docstring), the last torch.sparse.mm's, whose
-    ``max_abs_err`` is against K2.  Each kernel is timed over ``reps``
-    calls (none for ``reps=0``, and every ms is then None), its wrapper's
-    launch counter set to 0 just before the timed calls and read just
-    after."""
+def raw_error(M, x):
+    """A function of an (n_dst, nv) result: max |out - oracle| / max
+    |oracle| over the rows of nonzero weight, against the f64 scipy product
+    of WeightedMatrix ``M`` and the cleaned numpy field ``x``; None for no
+    ``M``."""
+    if M is None:
+        return lambda out: None
     import scipy.sparse as sp
-    device = csr.device
-    xt = torch.as_tensor(x, device=device)
-    nv = x.shape[1]
     w = np.asarray(M.wM)
     live = w > 0
     want = np.asarray(sp.csr_matrix((M.vals, (M.rows, M.cols)), shape=M.shape)
                       @ np.where(np.isfinite(x), x, 0.0).astype(np.float64))
     want[live] /= w[live, None]
     scale = np.abs(want[live]).max() if live.any() else 1.0
+    return lambda out: float(np.abs(out.cpu().numpy()[live].astype(np.float64)
+                                    - want[live]).max() / scale)
 
-    def raw(out):
-        return float(np.abs(out.cpu().numpy()[live].astype(np.float64)
-                            - want[live]).max() / scale)
+
+def run_cases(M, csr, x, reps=REPS):
+    """Every case of the probe on ``csr`` (the dest-small CSR of
+    WeightedMatrix ``M``; None: no raw error) and the (n_src, nv) f32 numpy
+    field ``x``: a list of dicts (module docstring), the last
+    torch.sparse.mm's, whose ``max_abs_err`` is against K2.  Each kernel is
+    timed over ``reps`` calls (none for ``reps=0``, and every ms is then
+    None), its wrapper's launch counter set to 0 just before the timed
+    calls and read just after."""
+    device = csr.device
+    xt = torch.as_tensor(x, device=device)
+    nv = x.shape[1]
+    raw = raw_error(M, x)
 
     # the CSR of the live rows alone: K2 on it skips the empty rows' warps
     live_rows = torch.nonzero(csr.rowptr[1:] > csr.rowptr[:-1]).squeeze(1)
@@ -216,7 +213,7 @@ def run_cases(M, csr, x, reps=REPS):
 
     k2 = None
     res = []
-    for name, p, wrap, ref, operator in cases():
+    for name, p, wrap, ref, operator, _ in cases():
         c, args = (sub, ()) if p == LIVE else (csr, () if p is None else (p,))
 
         def fn():
@@ -240,27 +237,19 @@ def run_cases(M, csr, x, reps=REPS):
         res.append({
             "kernel": name, "param": p, "ms": ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "plain_ms": plain_ms,
-            "max_abs_err": _max_diff(got, want_plain),
-            "rerun_identical": _same(got, again),
-            "equals_k2": _same(got, k2),
+            "max_abs_err": max_diff(got, want_plain),
+            "equals_plain": same(got, want_plain),
+            "rerun_identical": same(got, again),
+            "equals_k2": same(got, k2),
             "raw_err": raw(got) if operator else None,
             "launches": launches})
-    per_row = (csr.rowptr[1:] - csr.rowptr[:-1]).long()
-    rows = torch.repeat_interleave(torch.arange(csr.n_dst, device=device),
-                                   per_row)
-    with warnings.catch_warnings():      # PyTorch's beta notice for CSR
-        warnings.simplefilter("ignore")
-        S = torch.sparse_csr_tensor(csr.rowptr.long(), csr.cols.long(),
-                                    csr.vals * csr.winv[rows],
-                                    size=(csr.n_dst, csr.n_src))
-    xc = torch.where(torch.isfinite(xt), xt, 0.0)
-    lib = torch.sparse.mm(S, xc)
+    spmm = library_spmm(csr, xt)
+    lib = spmm()
     bound_ms, bound_by = spmm_bound(csr, nv)
     res.append({"kernel": "torch.sparse.mm", "param": None,
-                "ms": time_ms(lambda: torch.sparse.mm(S, xc), reps)
-                if reps else None, "bound_ms": bound_ms,
-                "bound_by": bound_by, "max_abs_err": _max_diff(lib, k2),
-                "raw_err": raw(lib)})
+                "ms": time_ms(spmm, reps) if reps else None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": max_diff(lib, k2), "raw_err": raw(lib)})
     return res
 
 

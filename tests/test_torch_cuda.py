@@ -21,7 +21,10 @@ off) within 130 * 2**-24 of sum |T * F|.  The dest-small probe kernels
 (csrc/k2probe.cu) follow their plain versions' summation orders, so they
 agree bit for bit, also on data whose large terms cancel (any other order
 gives other bits); slots(1) and group(1) are K2's order, bit for bit
-spmm_dest_small.  A two-sheet coupler on the card
+spmm_dest_small.  So do the dest-ice probe kernels (csrc/k1probe.cu), and
+those in K1's order (slots(1), every batch, ablate row, stage scale, every
+store) are bit for bit spmm_dest_ice, signed zeros included.  A two-sheet
+coupler on the card
 is held to its CPU run as phase 6 of chip_smoke.py holds the toy (1e-5 of
 the ice state, 1e-6 of each ledger row), and the gcmce C ABI on the card
 is bit for bit the adapter driven directly.
@@ -39,6 +42,7 @@ from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                        clip_areas_centroids_poly_ref,
                                        clip_areas_centroids_ref)
 from icebin_tpu_torch.ops.csr import csr_pack
+from icebin_tpu_torch.ops import k1probe as k1p
 from icebin_tpu_torch.ops import k2probe as kp
 from icebin_tpu_torch.ops.floor import (spmm_floor_ice, spmm_floor_ice_ref,
                                         spmm_floor_small,
@@ -47,6 +51,7 @@ from icebin_tpu_torch.ops.prods import tile_prods, tile_prods_ref
 from icebin_tpu_torch.ops.roof import stream_reduce, stream_reduce_ref
 from icebin_tpu_torch.regrid.sparse import WeightedMatrix
 from icebin_tpu_torch.tools import probe_k2
+from icebin_tpu_torch.tools.common import same
 
 pytestmark = pytest.mark.cuda
 
@@ -497,3 +502,80 @@ def test_k2probe_kernels_match_plain(cuda, nv):
                 assert torch.equal(got, kern(c, xt, p)), (kern.__name__, p)
                 if p == 1:
                     assert torch.equal(got, k2), (kern.__name__, p)
+
+
+K1PROBES = ((k1p.spmm_ice_slots, k1p.spmm_ice_slots_ref, k1p.SLOTS),
+            (k1p.spmm_ice_batch, k1p.spmm_ice_batch_ref, k1p.BATCH),
+            (k1p.spmm_ice_ablate, k1p.spmm_ice_ablate_ref, k1p.MODES),
+            (k1p.spmm_ice_stage, k1p.spmm_ice_stage_ref, k1p.LEVELS),
+            (k1p.spmm_ice_store, k1p.spmm_ice_store_ref, k1p.STORES))
+K1_ORDER = {1, *k1p.BATCH, "row", *k1p.STORES}
+
+
+@pytest.mark.parametrize("nv", [1, 16, 20, 64])
+def test_k1probe_kernels_match_plain(cuda, nv):
+    """Every dest-ice probe kernel at every parameter bit for bit its plain
+    version (NaN equal to NaN: the gather stage propagates NaN sources), on
+    the IvE side of probe_k2.synth (NaN and inf sources) and on
+    probe_k2.order_case's cancelling data (rows of 300 and 700 nonzeros: the
+    batch kernels' chunks); reruns identical; the variants in K1's order bit
+    for bit spmm_dest_ice."""
+    M = probe_k2.synth(seed=nv)
+    ive = (csr_pack(M, nv=16, device=cuda).ice,
+           torch.as_tensor(probe_k2.fields(M.shape[0], nv, seed=nv),
+                           device=cuda))
+    csr, x = probe_k2.order_case(nv, nv, device=cuda)
+    for c, xt in (ive, (csr, torch.as_tensor(x, device=cuda))):
+        k1 = spmm_dest_ice(c, xt)
+        xf = xt.t().contiguous()
+        for kern, ref, params in K1PROBES:
+            for p in params:
+                xin = xf if p == "fields" else xt
+                n0 = kern.launches
+                got = kern(c, xin, p)
+                assert kern.launches == n0 + 1
+                want = ref(c, xin, p)
+                torch.cuda.synchronize()
+                assert same(got, want), (kern.__name__, p)
+                assert same(got, kern(c, xin, p)), (kern.__name__, p)
+                if p in K1_ORDER:
+                    got = got.t() if p == "fields" else got
+                    assert same(got, k1), (kern.__name__, p)
+
+
+def test_k1probe_store_buffers_on_the_card(cuda):
+    """store writes into the caller's buffer and returns it; rmw reads it
+    first (bit for bit its plain version from a non-zero buffer) and keeps
+    K1's -0.0 on a zeroed one; a refused operand raises before any
+    launch."""
+    from icebin_tpu_torch.ops.csr import csr_from_coo
+    csr = csr_from_coo([0, 0, 1], [0, 1, 1], [1e-30, 1e-30, 1.0], 2, 2,
+                       [1.0, 1.0], device=cuda)
+    x = torch.tensor([[-1e-30], [-2e-30]], device=cuda)
+    k1 = spmm_dest_ice(csr, x)
+    assert bool(torch.signbit(k1[0, 0]))
+    out = torch.zeros((2, 1), device=cuda)
+    assert k1p.spmm_ice_store(csr, x, "rmw", out=out) is out
+    assert same(out, k1)
+    M = probe_k2.synth(seed=5)
+    c = csr_pack(M, nv=16, device=cuda).ice
+    xt = torch.as_tensor(probe_k2.fields(M.shape[0], 16, seed=5),
+                         device=cuda)
+    held = torch.full((c.n_dst, 16), 2.0, device=cuda)
+    want = k1p.spmm_ice_store_ref(c, xt, "rmw", out=held.clone())
+    assert same(k1p.spmm_ice_store(c, xt, "rmw", out=held), want)
+    # into is K1's own kernel, counted as the store's launch, not K1's
+    n0, n1 = k1p.spmm_ice_store.launches, spmm_dest_ice.launches
+    assert k1p.spmm_ice_store(c, xt, "into", out=held) is held
+    assert k1p.spmm_ice_store.launches == n0 + 1
+    assert spmm_dest_ice.launches == n1
+    assert same(held, spmm_dest_ice(c, xt))
+    n0 = k1p.spmm_ice_store.launches
+    for bad in (torch.zeros((c.n_dst, 15), device=cuda),
+                torch.zeros((c.n_dst, 16)),                 # on the CPU
+                torch.zeros((16, c.n_dst), device=cuda).t()):
+        with pytest.raises(ValueError):
+            k1p.spmm_ice_store(c, xt, "into", out=bad)
+    with pytest.raises(ValueError):
+        k1p.spmm_ice_batch(c, xt, 64)                      # no instance
+    assert k1p.spmm_ice_store.launches == n0

@@ -1,7 +1,8 @@
 """The port runs without JAX and without the reference package: no module
 of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
 coupler, the overlap CLI, the run CLI, ``ModelEAdapter.couple_native`` and
-a gcmce shim round trip, nor after the dest-small probe's entry point;
+a gcmce shim round trip, nor after the dest-small and dest-ice probes'
+entry points;
 chip_smoke.py imports only the port and refuses to run without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
@@ -146,8 +147,9 @@ def test_port_source_imports_nothing_of_the_reference():
     names = {str(f.relative_to(ROOT / "icebin_tpu_torch")) for f in files}
     assert {"coupler/multivec.py", "topo/topo.py", "models/modele_adapter.py",
             "models/gcmce_shim.py", "ops/_build_gcmce.py", "ops/floor.py",
-            "ops/prods.py", "ops/k2probe.py", "tools/__init__.py",
-            "tools/common.py", "tools/probe_k2.py"} <= names
+            "ops/prods.py", "ops/k2probe.py", "ops/k1probe.py",
+            "ops/_probe.py", "tools/__init__.py", "tools/common.py", "tools/probe_k2.py",
+            "tools/probe_k1.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f)
                                             if m.split(".")[0] in
                                             ("icebin_tpu", "jax", "jaxlib"))
@@ -157,7 +159,7 @@ def test_port_source_imports_nothing_of_the_reference():
 
 PROBE_RUN = """
 import contextlib, io, json, sys
-from icebin_tpu_torch.tools.probe_k2 import main
+from icebin_tpu_torch.tools.{probe} import main
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     assert main(["--config", "synth", "--device", "cpu", "--nv", "16"]) == 0
@@ -167,16 +169,33 @@ print(len(lines), sorted(k for k in sys.modules
 """
 
 
-def test_probe_k2_imports_no_jax():
-    """The dest-small probe's entry point on the CPU, in an interpreter that
-    never imports JAX nor the reference package."""
-    out = subprocess.run([sys.executable, "-c", PROBE_RUN], cwd=ROOT,
+def _probe_run(probe):
+    """(JSON lines, modules of JAX or the reference loaded) of ``probe``'s
+    entry point on the CPU in a fresh interpreter."""
+    out = subprocess.run([sys.executable, "-c",
+                          PROBE_RUN.replace("{probe}", probe)], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
     n, mods = out.stdout.split(maxsplit=1)
-    assert int(n) == 17
-    assert mods.strip() == "[]", mods
+    return int(n), mods.strip()
+
+
+def test_probe_k2_imports_no_jax():
+    """The dest-small probe's entry point on the CPU, in an interpreter that
+    never imports JAX nor the reference package."""
+    n, mods = _probe_run("probe_k2")
+    assert n == 17
+    assert mods == "[]", mods
+
+
+def test_probe_k1_imports_no_jax():
+    """The dest-ice probe's entry point (ops/k1probe.py, tools/probe_k1.py)
+    on the CPU, in an interpreter that never imports JAX nor the reference
+    package."""
+    n, mods = _probe_run("probe_k1")
+    assert n == 21
+    assert mods == "[]", mods
 
 
 def test_chip_smoke_imports_only_the_port():
