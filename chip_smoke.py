@@ -83,7 +83,19 @@ Phases, each of which exits non-zero on failure:
            stage's), each counter set to 0 just before its timed runs;
            every variant bit for bit its plain version and its rerun (also
            on cancelling data), the variants in K1's order bit for bit K1,
-           raw error < 5e-7; then how K1's time divides.
+           raw error < 5e-7; then how K1's time divides;
+15. smemfold the fold and capacity probes through
+           icebin_tpu_torch.tools.probe_fold_ops and tools.probe_vmem: every
+           fold (reshape down and up, the V1 fold and its inverse) by both
+           routes (shared memory, warp shuffles) in f32 and f64 at B = 1,
+           64, 16,384 and 64,800 tiles (csrc/foldprobe.cu), bit for bit its
+           plain version, the library copy and its rerun, each counter set
+           to 0 just before its timed runs; the TPU probe's semantic checks;
+           then the largest (n, 128) f32 in + out pair held in one block's
+           shared memory and in a cluster of 2, 4, 8 and 16 blocks
+           (csrc/smemprobe.cu), bisected (a size fits only if the launch is
+           accepted and the result is bit for bit x * 2.0), with the
+           cluster occupancy the card reports.
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -1395,6 +1407,94 @@ def phase_k1probe(sheets, device):
                        k1_split, sheets, device)
 
 
+# -- phase 15: the fold and capacity probes --------------------------------
+
+FOLD_BLOCKS = (1, 64, 16384, 64800)   # 16,384: 33.5 MB f32, inside the L2;
+                                      # 64,800: one tile per Greenland E row
+SMEMFOLD_SITES = {   # kernel: (its source, its TPU site)
+    "fold_tiles": ("foldprobe.cu", "tools/probe_fold_ops.py:16"),
+    "smem_copy_block": ("smemprobe.cu", "tools/probe_vmem.py:32"),
+    "smem_copy_cluster": ("smemprobe.cu", "tools/probe_vmem.py:32"),
+}
+
+
+def phase_smemfold(device):
+    """Phase 15: the fold probe (tools/probe_fold_ops) at FOLD_BLOCKS and
+    the capacity probe (tools/probe_vmem), through their run functions.
+    Returns {kernel: its JSON row's numbers}: fold_tiles at the f64 V1 fold
+    of 64,800 tiles by its faster route (the stage-2 dest-small kernel's
+    question), launches summed and max_abs_err the worst over every case;
+    smem_copy_block at its largest n; smem_copy_cluster at the largest
+    cluster, launches summed over the cluster sizes."""
+    from icebin_tpu_torch.ops.foldprobe import FOLDS
+    from icebin_tpu_torch.tools import probe_fold_ops, probe_vmem
+    cases = probe_fold_ops.run_cases(FOLD_BLOCKS, device)
+    by = {}
+    for c in cases:
+        tag = f"{c['fold']} {c['route']} {c['dtype']} B={c['blocks']}"
+        by[(c["fold"], c["route"], c["dtype"], c["blocks"])] = c
+        say(f"smemfold: fold_tiles {tag} ({c['MB']:.3f} MB in + out) "
+            f"{c['ms']:.4f} ms = {c['MB'] / c['ms']:.1f} GB/s, bound "
+            f"{c['bound_ms']:.4f} ms ({c['bound_by']}), plain "
+            f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} ms; bit "
+            f"for bit plain {c['equals_plain']}, library "
+            f"{c['equals_library']}, rerun {c['rerun_identical']}; launches "
+            f"in the timed calls {c['launches']}")
+        check(c["equals_plain"] and c["equals_library"],
+              f"fold_tiles {tag} differs from its plain version")
+        check(c["rerun_identical"], f"fold_tiles {tag} rerun differs")
+        check(c["launches"] > 0, f"fold_tiles {tag} was not launched")
+    for fold in FOLDS:               # each route's own cost, by depth
+        for dtype in probe_fold_ops.DTYPES:
+            diff = [1e3 * (by[(fold, "shfl", dtype, B)]["ms"]
+                           - by[(fold, "smem", dtype, B)]["ms"])
+                    for B in FOLD_BLOCKS]
+            say(f"smemfold: {fold} {dtype}, shfl - smem (us): " + ", ".join(
+                f"B={B} {d:+.2f}" for B, d in zip(FOLD_BLOCKS, diff)))
+    for what, value in probe_fold_ops.semantic_checks(device).items():
+        say(f"smemfold: {what}: {value}")
+        check(value == (what != "slice+concat matches row-major fold"),
+              f"fold probe check '{what}' gave {value}")
+    deep = FOLD_BLOCKS[-1]
+    best = min((by[("v1_fold", r, "f64", deep)] for r in ("smem", "shfl")),
+               key=lambda c: c["ms"])
+    res = {"fold_tiles": dict(
+        {k: best[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        param=f"v1_fold {best['route']} f64 B={deep}",
+        launches=sum(c["launches"] for c in cases),
+        max_abs_err=max(c["max_abs_err"] for c in cases))}
+    found = probe_vmem.run(device)
+    for r in found:
+        tag = ("one block" if r["scope"] == "block"
+               else f"a cluster of {r['cluster']}")
+        say(f"smemfold: smem_copy in {tag}: largest n {r['rows']} rows = "
+            f"{r['rows']} KB in + out ({r['per_block_kb']} KB a block), "
+            f"occupancy {r['occupancy']}; {r['refused_rows']} rows refused "
+            f"({r['refusal']}, occupancy {r['refusal_occupancy']}); staging "
+            f"budget (80%) {r['budget_kb']} KB; {r['attempts']} sizes tried; "
+            f"at n: {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.mul {r['library_ms']:.4f} ms, "
+            f"bit for bit x * 2.0 {r['equals_plain']}, launches "
+            f"{r['launches']}")
+        check(r["equals_plain"], f"smem_copy in {tag} differs from x * 2.0")
+        check(r["launches"] > 0, f"smem_copy in {tag} was not launched")
+    cl = [r for r in found if r["scope"] == "cluster"]
+    for name, r, launches, worst in (
+            ("smem_copy_block", found[0], found[0]["launches"],
+             found[0]["max_abs_err"]),
+            ("smem_copy_cluster", cl[-1], sum(c["launches"] for c in cl),
+             max(c["max_abs_err"] for c in cl))):
+        res[name] = dict(
+            {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+            param=(f"n={r['rows']}" if r["scope"] == "block"
+                   else f"C={r['cluster']}, n={r['rows']}"),
+            launches=launches,
+            max_abs_err=worst)
+    return res
+
+
 def main():
     global CARD
     import torch
@@ -1439,11 +1539,15 @@ def main():
     t14 = time.perf_counter()
     probes1 = phase_k1probe(sheets, device)
     say(f"k1probe: phase 14 took {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    smemfold = phase_smemfold(device)
+    say(f"smemfold: phase 15 took {time.perf_counter() - t15:.1f} s")
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]
     launches["stream_reduce"] = roof["launches"]
-    for name, res in (*floors.items(), *probes.items(), *probes1.items()):
+    for name, res in (*floors.items(), *probes.items(), *probes1.items(),
+                      *smemfold.items()):
         launches[name] = res["launches"]
 
     def row(name, source, replaces, res):
@@ -1488,7 +1592,10 @@ def main():
         dict(row(name, "icebin_tpu_torch/csrc/" + (
             "spmm.cu" if probes1[name]["param"] == "into" else "k1probe.cu"),
                  site, probes1[name]), param=probes1[name]["param"])
-        for name, site in K1PROBE_SITES.items()]
+        for name, site in K1PROBE_SITES.items()] + [
+        dict(row(name, "icebin_tpu_torch/csrc/" + src, site, smemfold[name]),
+             param=smemfold[name]["param"])
+        for name, (src, site) in SMEMFOLD_SITES.items()]
     say(f"whole script {time.perf_counter() - t0:.1f} s (the build "
         f"included)")
     print(json.dumps({"kernels": kernels}))

@@ -31,6 +31,7 @@ NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                         "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PI = ctypes.POINTER(ctypes.c_int)
 #: C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
     "spmm_dest_small": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
@@ -50,7 +51,11 @@ _SIGNATURES = {
     "spmm_ice_ablate": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "spmm_ice_stage": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
     "spmm_ice_store": ((_P,) * 6 + (_I,) * 4 + (_P,), _I),
+    "fold_tiles": ((_P, _P) + (_I,) * 4 + (_P,), _I),
+    "smem_copy_block": ((_P, _P, _I, _P), _I),
+    "smem_copy_cluster": ((_P, _P, _I, _I, _PI, _P), _I),
     "icebin_cuda_error_string": ((_I,), ctypes.c_char_p),
+    "icebin_cuda_error_name": ((_I,), ctypes.c_char_p),
 }
 
 _lock = threading.Lock()

@@ -77,9 +77,13 @@ def spmm_bound(csr, nv, vals=True, winv=True, reads_out=False):
 
 
 def same(a, b):
-    """Bit for bit, signed zeros told apart; a NaN equals any NaN (a
-    function that propagates NaN sources need not keep their payloads)."""
-    bits = a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+    """Bit for bit (f32 or f64, one type), signed zeros told apart; a NaN
+    equals any NaN (a function that propagates NaN sources need not keep
+    their payloads)."""
+    if a.dtype != b.dtype:
+        return False
+    ints = torch.int64 if a.element_size() == 8 else torch.int32
+    bits = a.contiguous().view(ints) == b.contiguous().view(ints)
     return bool((bits | (torch.isnan(a) & torch.isnan(b))).all())
 
 

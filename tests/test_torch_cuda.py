@@ -23,8 +23,10 @@ agree bit for bit, also on data whose large terms cancel (any other order
 gives other bits); slots(1) and group(1) are K2's order, bit for bit
 spmm_dest_small.  So do the dest-ice probe kernels (csrc/k1probe.cu), and
 those in K1's order (slots(1), every batch, ablate row, stage scale, every
-store) are bit for bit spmm_dest_ice, signed zeros included.  A two-sheet
-coupler on the card
+store) are bit for bit spmm_dest_ice, signed zeros included.  The fold
+kernels (csrc/foldprobe.cu) and the shared-memory copies
+(csrc/smemprobe.cu) only move values (and double them), so they agree with
+their plain versions bit for bit.  A two-sheet coupler on the card
 is held to its CPU run as phase 6 of chip_smoke.py holds the toy (1e-5 of
 the ice state, 1e-6 of each ledger row), and the gcmce C ABI on the card
 is bit for bit the adapter driven directly.
@@ -44,6 +46,9 @@ from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
 from icebin_tpu_torch.ops.csr import csr_pack
 from icebin_tpu_torch.ops import k1probe as k1p
 from icebin_tpu_torch.ops import k2probe as kp
+from icebin_tpu_torch.ops import smemprobe as sm
+from icebin_tpu_torch.ops.foldprobe import (FOLDS, ROUTES, fold_tiles,
+                                            fold_tiles_ref, shapes)
 from icebin_tpu_torch.ops.floor import (spmm_floor_ice, spmm_floor_ice_ref,
                                         spmm_floor_small,
                                         spmm_floor_small_ref)
@@ -579,3 +584,49 @@ def test_k1probe_store_buffers_on_the_card(cuda):
     with pytest.raises(ValueError):
         k1p.spmm_ice_batch(c, xt, 64)                      # no instance
     assert k1p.spmm_ice_store.launches == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("fold", FOLDS)
+def test_fold_tiles_match_plain(cuda, fold, route, dtype):
+    for B in (1, 64, 1000):
+        x = np.random.default_rng(B).uniform(-1, 1, (B, *shapes(fold)[0]))
+        x = torch.as_tensor(x, dtype=dtype, device=cuda)
+        n0 = fold_tiles.launches
+        got = fold_tiles(x, fold, route)
+        torch.cuda.synchronize()
+        assert fold_tiles.launches == n0 + 1
+        assert got.dtype == dtype and tuple(got.shape[1:]) == shapes(fold)[1]
+        assert same(got, fold_tiles_ref(x, fold))
+
+
+def test_smem_copy_kernels_match_plain(cuda):
+    for n, scope, cluster in ((200, "block", 1), (200, "cluster", 2),
+                              (1000, "cluster", 8), (3000, "cluster", 16)):
+        x = sm.rows_data(n, cuda)
+        n0 = sm.smem_copy.launches
+        got = sm.smem_copy(x, scope, cluster)
+        torch.cuda.synchronize()
+        assert sm.smem_copy.launches == n0 + 1
+        assert same(got, x * 2.0)
+
+
+def test_smem_copy_oversize_is_refused_not_raised(cuda):
+    """A size over the limit raises Refused (a launch-configuration
+    refusal), leaves the card usable, and the bisect reports it; one block's
+    limit is the card's opt-in shared memory."""
+    for n, scope, cluster in ((300, "block", 1), (16 * 300, "cluster", 16)):
+        with pytest.raises(sm.Refused) as e:
+            sm.smem_copy(sm.rows_data(n, cuda), scope, cluster)
+        assert e.value.status in sm.REFUSALS
+    x = sm.rows_data(100, cuda)
+    got = sm.smem_copy(x)
+    torch.cuda.synchronize()
+    assert same(got, x * 2.0)
+    found = sm.largest_rows("block", 1, cuda)
+    assert found["refusal"] in sm.REFUSALS
+    optin = getattr(torch.cuda.get_device_properties(cuda),
+                    "shared_memory_per_block_optin", None)
+    if optin:
+        assert found["rows"] == optin // 1024

@@ -1,8 +1,8 @@
 """The port runs without JAX and without the reference package: no module
 of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
 coupler, the overlap CLI, the run CLI, ``ModelEAdapter.couple_native`` and
-a gcmce shim round trip, nor after the dest-small and dest-ice probes'
-entry points;
+a gcmce shim round trip, nor after the entry points of the dest-small,
+dest-ice, fold and capacity probes;
 chip_smoke.py imports only the port and refuses to run without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
@@ -149,7 +149,8 @@ def test_port_source_imports_nothing_of_the_reference():
             "models/gcmce_shim.py", "ops/_build_gcmce.py", "ops/floor.py",
             "ops/prods.py", "ops/k2probe.py", "ops/k1probe.py",
             "ops/_probe.py", "tools/__init__.py", "tools/common.py", "tools/probe_k2.py",
-            "tools/probe_k1.py"} <= names
+            "tools/probe_k1.py", "ops/foldprobe.py", "ops/smemprobe.py",
+            "tools/probe_fold_ops.py", "tools/probe_vmem.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f)
                                             if m.split(".")[0] in
                                             ("icebin_tpu", "jax", "jaxlib"))
@@ -162,18 +163,20 @@ import contextlib, io, json, sys
 from icebin_tpu_torch.tools.{probe} import main
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
-    assert main(["--config", "synth", "--device", "cpu", "--nv", "16"]) == 0
+    assert main({args}) == 0
 lines = [json.loads(s) for s in buf.getvalue().splitlines()]
 print(len(lines), sorted(k for k in sys.modules
                          if k.split(".")[0] in ("jax", "icebin_tpu")))
 """
 
 
-def _probe_run(probe):
+def _probe_run(probe, args=("--config", "synth", "--device", "cpu", "--nv",
+                             "16")):
     """(JSON lines, modules of JAX or the reference loaded) of ``probe``'s
-    entry point on the CPU in a fresh interpreter."""
-    out = subprocess.run([sys.executable, "-c",
-                          PROBE_RUN.replace("{probe}", probe)], cwd=ROOT,
+    entry point on the CPU with ``args`` in a fresh interpreter."""
+    code = PROBE_RUN.replace("{probe}", probe).replace("{args}",
+                                                       repr(list(args)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
@@ -195,6 +198,26 @@ def test_probe_k1_imports_no_jax():
     package."""
     n, mods = _probe_run("probe_k1")
     assert n == 21
+    assert mods == "[]", mods
+
+
+def test_probe_fold_ops_imports_no_jax():
+    """The fold probe's entry point (ops/foldprobe.py,
+    tools/probe_fold_ops.py) on the CPU: one line per fold, route, type and
+    B, then the three semantic checks, in an interpreter that never imports
+    JAX nor the reference package."""
+    n, mods = _probe_run("probe_fold_ops",
+                         ("--device", "cpu", "--blocks", "1", "64"))
+    assert n == 2 * 2 * 4 * 2 + 3
+    assert mods == "[]", mods
+
+
+def test_probe_vmem_imports_no_jax():
+    """The capacity probe's entry point (ops/smemprobe.py,
+    tools/probe_vmem.py) on the CPU: the plain version at n = 224, in an
+    interpreter that never imports JAX nor the reference package."""
+    n, mods = _probe_run("probe_vmem", ("--device", "cpu"))
+    assert n == 1
     assert mods == "[]", mods
 
 
