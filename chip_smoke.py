@@ -22,9 +22,13 @@ Phases, each of which exits non-zero on failure:
            match the f64 numpy builder and its column sums the cell
            areas; every ledger row's transport identity must hold < 1e-10;
 4. spmm    the two regrid kernels on the real EvI/IvE/AvI/IvA at nv = 16
-           against their plain version and the f64 scipy oracle (raw error
-           < 5e-7), and a repeat run bit-identical, timed beside cuSPARSE
-           (torch.sparse.mm) on the same matrices;
+           and 64 against their plain versions (K2 bit for bit the plain
+           version of its own order, K1 bit for bit the stage-1 K1 in both
+           field layouts) and the f64 scipy oracle (raw error < 5e-7), and
+           a repeat run bit-identical, timed beside cuSPARSE
+           (torch.sparse.mm) and the stage-1 kernels on the same matrices,
+           K1 in the (nv, n) layout apply_ice runs, on (n, nv) and through
+           the stage-1 apply_ice's transposes;
 5. profile torch.profiler over the steady steps before the next
            regeneration: device busy time per step, the device's idle
            share and the largest device operations;
@@ -58,7 +62,7 @@ Phases, each of which exits non-zero on failure:
            GCMCoupler on both sheets (6 stepwise steps, deferred ledger,
            then a fused window, counters likewise); steps/s as bench.py
            measures them (each sheet alone, then both); Antarctica's
-           EvI/IvE/AvI/IvA through the regrid kernels at nv = 16 and 64;
+           EvI/IvE/AvI/IvA through phase 4's checks at nv = 16 and 64;
 11. modele the port's gcmce_* C ABI through ctypes on config #5's files:
            two steps of forcing in ModelE's layout from two 'ranks', the
            TOPO buffers, ledger rows and ice state bit for bit the
@@ -73,12 +77,14 @@ Phases, each of which exits non-zero on failure:
            and 64 through icebin_tpu_torch.tools.probe_k2, beside K2, its
            stream floor and cuSPARSE, each counter set to 0 just before its
            timed runs; every variant bit for bit its plain version and its
-           rerun, slots(1) and group(1) bit for bit K2, raw error < 5e-7;
-           then how K2's time divides;
+           rerun, slots(1) and group(1) bit for bit the stage-1 K2's order,
+           K2 on its live rows alone bit for bit K2, raw error < 5e-7; then
+           how the stage-1 K2's time (slots(1)) divides, with the stage-2
+           K2 beside it;
 14. k1probe the dest-ice probe kernels (csrc/k1probe.cu: slots, batch,
            ablate, stage and store variants of K1) on both sheets' IvE at
            nv = 16 and 64 through icebin_tpu_torch.tools.probe_k1, beside
-           K1, K1 as apply_ice runs it (the input's transpose copied), its
+           K1, K1 through the stage-1 apply_ice's transposes, its
            stream floor and cuSPARSE (for K1's function and for each lower
            stage's), each counter set to 0 just before its timed runs;
            every variant bit for bit its plain version and its rerun (also
@@ -346,18 +352,43 @@ def phase_main(specA, specI, device, counters):
 
 def check_spmm(kern, csr, A, w, tag, rng, nv=16):
     """``kern`` on ``csr`` (the pack of sparse matrix ``A``, destination
-    weights ``w``) at ``nv`` fields against its plain version and the f64
+    weights ``w``) at ``nv`` fields against its plain versions and the f64
     scipy product, timed beside cuSPARSE (``torch.sparse.mm`` on the CSR
-    with ``winv`` folded into its values, on the pre-cleaned field);
-    returns {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    with ``winv`` folded into its values, on the pre-cleaned field) and
+    the stage-1 kernel of the same function.  K2 is held bit for bit to
+    spmm_dest_small_ref (its own order); K1, in both field layouts, bit for
+    bit to the stage-1 K1 (k1probe's slots(1), a thread an output, and
+    ablate row, a thread a row), whose order it keeps.  K1's ``ms`` is the
+    (nv, n) layout apply_ice runs; it is also timed on (n, nv) and through
+    the transposes the stage-1 apply_ice made.  Returns {max_abs_err, ms,
+    plain_ms, library_ms, bound_ms, bound_by, stage1_ms}."""
     import torch
-    from icebin_tpu_torch.ops.apply import spmm_ref
+    from icebin_tpu_torch.ops import k1probe, k2probe
+    from icebin_tpu_torch.ops.apply import (spmm_dest_ice,
+                                            spmm_dest_small_ref, spmm_ref)
+    from icebin_tpu_torch.tools.common import same
     device = csr.device
     x = (260.0 + 30.0 * rng.uniform(size=(csr.n_src, nv))).astype(np.float32)
     xt = torch.as_tensor(x, device=device)
+    xf = xt.t().contiguous()
+    ice = kern is spmm_dest_ice
     got = kern(csr, xt)
     again = kern(csr, xt)
     plain = spmm_ref(csr, xt)
+    if ice:
+        fields = kern(csr, xf, fields=True)
+        stage1 = {"slots(1)": lambda: k1probe.spmm_ice_slots(csr, xt, 1),
+                  "ablate row": lambda: k1probe.spmm_ice_ablate(csr, xt,
+                                                                 "row")}
+        exact = {name: fn() for name, fn in stage1.items()}
+        exact_ok = all(same(got, e) and same(fields.t(), e)
+                       for e in exact.values())
+        what = ("bit for bit the stage-1 K1 (slots(1), ablate row) in both "
+                "layouts")
+    else:
+        stage1 = {"slots(1)": lambda: k2probe.spmm_small_slots(csr, xt, 1)}
+        exact_ok = same(got, spmm_dest_small_ref(csr, xt))
+        what = "bit for bit spmm_dest_small_ref"
     torch.cuda.synchronize()
     want = np.asarray(A @ x.astype(np.float64))
     live = w > 0
@@ -366,26 +397,40 @@ def check_spmm(kern, csr, A, w, tag, rng, nv=16):
     raw = np.abs(g[live] - want[live]).max() / np.abs(want[live]).max()
     d_plain = (got - plain).abs().max().item()
     ident = bool(torch.equal(got, again))
-    ms = time_ms(lambda: kern(csr, xt), 50)
+    rows_ms = time_ms(lambda: kern(csr, xt), 50)
+    stage1_ms = {name: time_ms(fn, 50) for name, fn in stage1.items()}
     plain_ms = time_ms(lambda: spmm_ref(csr, xt), 10)
     per_row = (csr.rowptr[1:] - csr.rowptr[:-1])
     spmm = library_spmm(csr, xt)
     d_lib = (spmm() - got).abs().max().item()
     lib_ms = time_ms(spmm, 50)
     bound_ms, bound_by = spmm_bound(csr, nv)
+    if ice:
+        ms = time_ms(lambda: kern(csr, xf, fields=True), 50)
+        via = time_ms(lambda: kern(csr, xf.t().contiguous()).t(), 50)
+        times = (f"K1 (nv, n) as apply_ice runs it {ms:.4f} ms, (n, nv) "
+                 f"{rows_ms:.4f} ms, through the stage-1 apply_ice's "
+                 f"transposes {via:.4f} ms ({1e3 * (via - ms):+.1f} us)")
+    else:
+        ms = rows_ms
+        times = f"stage-2 K2 {ms:.4f} ms"
+    stage = ", ".join(f"{n} {t:.4f} ms" for n, t in stage1_ms.items())
     say(f"{kern.__name__} {tag}: ({csr.n_src} x {nv}) -> ({csr.n_dst} x "
         f"{nv}), "
         f"{csr.vals.numel()} nnz in {int((per_row > 0).sum())} live rows of "
         f"at most {int(per_row.max())}: raw error vs f64 oracle {raw:.3e} "
         f"(limit {RAW_TOL:g}), max |kernel - plain| {d_plain:.3e} (limit "
-        f"1e-4), repeat bit-identical {ident}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms (max |kernel - "
-        f"cuSPARSE| {d_lib:.3e}), bound {bound_ms:.4f} ms ({bound_by})")
+        f"1e-4), {what} {exact_ok}, repeat bit-identical {ident}; {times}; "
+        f"stage 1: {stage}; cuSPARSE {lib_ms:.4f} ms (max |kernel - "
+        f"cuSPARSE| {d_lib:.3e}), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     check(raw < RAW_TOL, f"{tag} raw error {raw:.3e}")
     check(ident, f"{tag} repeat run is not bit-identical")
     check(d_plain < 1e-4, f"{tag} kernel vs plain {d_plain:.3e}")
+    check(exact_ok, f"{tag} {kern.__name__} is not {what}")
     return {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "stage1_ms": stage1_ms["slots(1)"]}
 
 
 def check_pack(M, pack, names, rng, nv=16):
@@ -403,14 +448,22 @@ def check_pack(M, pack, names, rng, nv=16):
 
 
 def phase_spmm(cp):
+    """Greenland's EvI/IvE and AvI/IvA through check_pack at nv = 16 (the
+    main path's pack; tags "EvI", "IvE", ...) and 64."""
+    from icebin_tpu_torch.ops.csr import csr_pack
     sc = cp.sheets["greenland"]
     rng = np.random.default_rng(2)
     res = {"spmm_dest_small": [], "spmm_dest_ice": []}
     for name in ("EvI", "AvI"):
         M = sc.rm.matrix(name, cp.cfg.params)
-        for kern, rows in check_pack(M, sc.mat(name).pack,
-                                     (name, "Iv" + name[0]), rng).items():
-            res[kern] += rows
+        for nv in (16, 64):
+            pack = (sc.mat(name).pack if nv == cp.cfg.nv
+                    else csr_pack(M, nv=nv, device=sc.device))
+            sfx = "" if nv == cp.cfg.nv else f" nv={nv}"
+            for kern, rows in check_pack(M, pack, (name + sfx,
+                                                   "Iv" + name[0] + sfx),
+                                         rng, nv).items():
+                res[kern] += rows
     return res
 
 
@@ -1207,9 +1260,12 @@ K2PROBE_SITES = {    # each probe kernel's TPU sites (pallas_call lines)
 
 
 def k2_split(by, tag):
-    """Print how K2's time divides on one matrix and nv: its stream floor,
-    then what K2 on its live rows alone and each variant's best parameter
-    save (+) or cost (-)."""
+    """Print how the stage-1 K2's time divides on one matrix and nv (the
+    stage-1 K2 is slots(1), whose order and mapping it keeps: a warp a
+    row, every row): its stream floor, then what each variant's best
+    parameter saves (+) or costs (-); and the stage-2 K2 beside it, on the
+    whole CSR and on its live rows alone (what its empty rows' zeros
+    cost)."""
     def ms(name, p=None):
         return by[(name, p)]["ms"]
 
@@ -1217,24 +1273,26 @@ def k2_split(by, tag):
         return min((c for (k, _), c in by.items() if k == name),
                    key=lambda c: c["ms"])
 
-    k2 = ms("spmm_dest_small")
-    parts = [("empty rows' warps (K2 - K2 on the live rows alone)",
-              k2 - ms("spmm_dest_small", LIVE)),
-             ("f64 arithmetic (K2 - ablate f32)",
+    k2 = ms("spmm_small_slots", 1)
+    parts = [("f64 arithmetic (stage 1 - ablate f32)",
               k2 - ms("spmm_small_ablate", "f32")),
-             ("shuffle tree (K2 - ablate smem)",
+             ("shuffle tree (stage 1 - ablate smem)",
               k2 - ms("spmm_small_ablate", "smem"))]
     for name, what in (("spmm_small_slots", "per-lane load chain"),
                        ("spmm_small_group", "share of the card in use"),
                        ("spmm_small_batch",
                         "per-16-field re-walk and uncoalesced reads")):
         b = best(name)
-        parts.append((f"{what} (K2 - {name[11:]}({b['param']}))",
+        parts.append((f"{what} (stage 1 - {name[11:]}({b['param']}))",
                       k2 - b["ms"]))
-    say(f"k2probe {tag}: K2 {k2:.4f} ms, its stream floor "
+    k2s = ms("spmm_dest_small")
+    say(f"k2probe {tag}: stage-1 K2 (slots(1)) {k2:.4f} ms, its stream floor "
         f"{ms('spmm_floor_small'):.4f} ms, cuSPARSE "
         f"{ms('torch.sparse.mm'):.4f} ms; "
-        + "; ".join(f"{what} {1e3 * d:+.1f} us" for what, d in parts))
+        + "; ".join(f"{what} {1e3 * d:+.1f} us" for what, d in parts)
+        + f"; stage-2 K2 {k2s:.4f} ms ({1e3 * (k2s - k2):+.1f} us against "
+        f"stage 1), on its live rows alone "
+        f"{ms('spmm_dest_small', LIVE):.4f} ms")
 
 
 # -- phase 14: the dest-ice probe kernels ----------------------------------
@@ -1290,7 +1348,7 @@ def k1_split(by, tag):
         + "; ".join(f"{what} {1e3 * d:+.1f} us" for what, d in parts)
         + f"; allocation, host wall clock of a synchronised call (K1 "
         f"{wall:.4f} ms - store into {into:.4f} ms) {1e3 * (wall - into):+.1f}"
-        f" us; K1 as in apply_ice (the input's transpose copied) {via:.4f} "
+        f" us; K1 through the stage-1 apply_ice's transposes {via:.4f} "
         f"ms against store fields {fields:.4f} ms "
         f"({1e3 * (via - fields):+.1f} us)")
 
@@ -1305,8 +1363,10 @@ def phase_probe(probe, base, matrix, side, sites, split, sheets, device):
     timed calls and read just after.  Every variant (the kernels of
     ``sites``) bit for bit its plain version and its rerun, then also on
     probe_k2.order_case's cancelling data, which tells the summation orders
-    apart; on the real matrices every case in ``base``'s order bit for bit
-    ``base`` and those with f64 sums within RAW_TOL of the f64 oracle (the
+    apart; on the real matrices every tie the probe's ``cases`` name holds
+    (K1's order gives K1's bits; slots(1) and group(1) give the stage-1 K2's
+    bits, and K2 on its live rows alone K2's) and those with f64 sums are
+    within RAW_TOL of the f64 oracle (the
     f32 ablation's error printed, not gated); ``split`` prints how
     ``base``'s time divides.
     Returns {kernel: its JSON row's numbers}: ms, plain ms and bounds at
@@ -1316,14 +1376,14 @@ def phase_probe(probe, base, matrix, side, sites, split, sheets, device):
     ``base``'s function); launches summed and max_abs_err the worst over
     every case of the phase."""
     from icebin_tpu_torch.tools.probe_k2 import fields, order_case
-    key = f"equals_{base.lower()}"
-    in_order = {(name, p) for name, p, *_, o in probe.cases() if o}
+    ties = {(name, p): key for name, p, *_, key in probe.cases() if key}
     res, launches, worst = {}, {}, {}
 
     def check_case(c, what, tag, against_base=True):
         name, p = c["kernel"], c["param"]
-        if against_base and (name, p) in in_order:
-            check(c[key], f"{what} {tag} is not {base}'s bits")
+        if against_base and (name, p) in ties:
+            check(c[ties[(name, p)]], f"{what} {tag}: {ties[(name, p)]} "
+                                      f"is false")
         if c["raw_err"] is not None and p != "f32":
             check(c["raw_err"] < RAW_TOL,
                   f"{what} {tag} raw error {c['raw_err']:.3e}")
@@ -1358,9 +1418,12 @@ def phase_probe(probe, base, matrix, side, sites, split, sheets, device):
                     f"{c['plain_ms']:.3f} ms (one call), max |kernel - "
                     f"plain| {c['max_abs_err']:.3e}, bit for bit plain "
                     f"{c['equals_plain']}, rerun bit-identical "
-                    f"{c['rerun_identical']}, bit for bit {base} {c[key]}, "
-                    f"raw error vs f64 oracle {raw}, launches in the timed "
-                    f"calls {c['launches']}")
+                    f"{c['rerun_identical']}, "
+                    + "".join(f"{k} {v}, " for k, v in c.items()
+                              if k.startswith("equals_")
+                              and k != "equals_plain")
+                    + f"raw error vs f64 oracle {raw}, launches in the "
+                    f"timed calls {c['launches']}")
                 check(c["launches"] > 0, f"{what} was not launched")
                 if name in sites:
                     launches[name] = launches.get(name, 0) + c["launches"]
@@ -1557,20 +1620,21 @@ def main():
                                        "bound_ms", "bound_by",
                                        "library_ms")}}
 
-    # timings at the main path's hot shapes: IvE (K1) and EvI (K2); the
-    # error is the worst of both matrices
+    # timings at the main path's hot shapes: IvE (K1, in the (nv, n) layout
+    # apply_ice runs) and EvI (K2), beside the stage-1 kernel's; the error
+    # is the worst of every matrix and nv of phase 4
     def spmm_row(name, tag):
         res = dict(spmm[name])[tag]
-        return dict(res, max_abs_err=max(r["max_abs_err"]
-                                         for _, r in spmm[name]))
+        return dict(row(name, "icebin_tpu_torch/csrc/spmm.cu",
+                        "icebin_tpu/ops/pallas_bdt.py:" + (
+                            "903" if name == "spmm_dest_ice" else "807"),
+                        dict(res, max_abs_err=max(r["max_abs_err"]
+                                                  for _, r in spmm[name]))),
+                    stage1_ms=res["stage1_ms"])
 
     kernels = [
-        row("spmm_dest_ice", "icebin_tpu_torch/csrc/spmm.cu",
-            "icebin_tpu/ops/pallas_bdt.py:903",
-            spmm_row("spmm_dest_ice", "IvE")),
-        row("spmm_dest_small", "icebin_tpu_torch/csrc/spmm.cu",
-            "icebin_tpu/ops/pallas_bdt.py:807",
-            spmm_row("spmm_dest_small", "EvI")),
+        spmm_row("spmm_dest_ice", "IvE"),
+        spmm_row("spmm_dest_small", "EvI"),
         row("clip_areas_centroids", "icebin_tpu_torch/csrc/clip.cu",
             "icebin_tpu/ops/pallas_clip.py:142", clip),
         row("clip_areas_centroids_poly", "icebin_tpu_torch/csrc/clip.cu",

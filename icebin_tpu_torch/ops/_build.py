@@ -34,8 +34,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _PI = ctypes.POINTER(ctypes.c_int)
 #: C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
-    "spmm_dest_small": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
-    "spmm_dest_ice": ((_P,) * 6 + (_I,) * 3 + (_P,), _I),
+    "spmm_dest_small": ((_P,) * 6 + (_I,) * 3 + (_P,) + (_I,) * 3 + (_P,),
+                        _I),
+    "spmm_dest_ice": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
     "clip_rect": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
     "clip_poly": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
     "stream_reduce": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),

@@ -8,7 +8,10 @@ gathers natively, so each direction is stored as a plain CSR sorted by
 destination: f32 values, int32 column indices, and the f32 inverse
 destination weight ``winv = 1/w`` (computed in f64; 0 where w = 0).  Two
 copies of the matrix cost twice its bytes but give both applies a fixed,
-atomic-free summation order.
+atomic-free summation order.  Each CSR also holds the list of its live
+(non-empty) rows, longest first, which the dest-small kernel launches over;
+it is derived from ``rowptr`` whenever a ``Csr`` is made, so a CSR made
+from another (``dataclasses.replace``) gets its own.
 """
 from __future__ import annotations
 
@@ -33,6 +36,19 @@ class Csr:
     winv: torch.Tensor        # (n_dst,) f32 1/w_dst (0 where w_dst == 0)
     n_dst: int
     n_src: int
+    # (n_live,) int32: the non-empty rows, longest first (ties by index).
+    # Always derived from rowptr when a Csr is made (a value passed in,
+    # e.g. copied by dataclasses.replace, is replaced).
+    live: torch.Tensor | None = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
+    n_live: int | None = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        # once per pack, on the rowptr's device; one host sync for n_live
+        lens = self.rowptr[1:] - self.rowptr[:-1]
+        order = torch.argsort(lens, descending=True, stable=True)
+        self.n_live = int((lens > 0).sum())
+        self.live = order[:self.n_live].to(torch.int32)
 
     @property
     def device(self) -> torch.device:

@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from icebin_tpu_torch.ops.apply import _check_operands, _launch, on_cpu
+from icebin_tpu_torch.ops.apply import (_check_operands, _fold, _launch,
+                                        on_cpu)
 from icebin_tpu_torch.ops.csr import Csr
 
 __all__ = ["spmm_floor_small", "spmm_floor_ice", "spmm_floor_small_ref",
@@ -40,17 +41,6 @@ def _terms(csr: Csr, x: torch.Tensor):
     pos = (torch.arange(csr.vals.numel(), device=x.device)
            - csr.rowptr.to(torch.int64)[rows])
     return rows, pos, csr.vals[:, None] + x[csr.cols.long()]
-
-
-def _fold(acc, rows, slot, step, terms):
-    """acc[rows, slot] += terms, one step of every row's sequence at a
-    time, in order (each (row, slot) appears at most once per step)."""
-    n = int(step.max()) + 1 if step.numel() else 0
-    for s in range(n):
-        sel = step == s
-        r, c = rows[sel], slot[sel]
-        acc[r, c] = acc[r, c] + terms[sel]
-    return acc
 
 
 def spmm_floor_small_ref(csr: Csr, x: torch.Tensor) -> torch.Tensor:

@@ -46,9 +46,9 @@ from __future__ import annotations
 import torch
 
 from icebin_tpu_torch.ops._probe import variant
-from icebin_tpu_torch.ops.apply import _check_operands, _launch, on_cpu
+from icebin_tpu_torch.ops.apply import (_check_operands, _fold, _ice,
+                                        _launch, ice_geometry, on_cpu)
 from icebin_tpu_torch.ops.csr import Csr
-from icebin_tpu_torch.ops.floor import _fold
 
 __all__ = ["SLOTS", "BATCH", "MODES", "LEVELS", "STORES", "spmm_ice_slots",
            "spmm_ice_batch", "spmm_ice_ablate", "spmm_ice_stage",
@@ -184,7 +184,7 @@ def spmm_ice_store(csr: Csr, x: torch.Tensor, mode: str,
         out = (torch.zeros if mode == "rmw" else torch.empty)(
             shape, dtype=torch.float32, device=x.device)
     if mode == "into":
-        _launch("spmm_dest_ice", csr, x, 1, out=out)
+        _ice(csr, x, True, False, *ice_geometry(nv, False), out=out)
     else:
         _launch("spmm_ice_store", csr, x, STORES.index(mode), csr.n_src,
                 out=out, nv=nv)

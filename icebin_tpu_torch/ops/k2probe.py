@@ -37,8 +37,8 @@ from __future__ import annotations
 import torch
 
 from icebin_tpu_torch.ops._probe import variant
+from icebin_tpu_torch.ops.apply import _fold
 from icebin_tpu_torch.ops.csr import Csr
-from icebin_tpu_torch.ops.floor import _fold
 
 __all__ = ["SLOTS", "GROUPS", "BATCH", "MODES", "spmm_small_slots",
            "spmm_small_group", "spmm_small_batch", "spmm_small_ablate",

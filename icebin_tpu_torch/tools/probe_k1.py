@@ -15,9 +15,10 @@ lattice (1120 x 1120) under the same atmosphere; ``synth`` the IvE side of
 initial (Vialov dome) ice surface.  The default device is cuda, which needs
 a GPU; ``--device cpu`` runs the plain versions and times nothing.
 
-The cases: K1; K1 as ``apply_ice`` runs it (parameter "as in apply_ice":
-the field copied from (nv, n_src) to (n_src, nv), the result returned as
-the transposed (nv, n_dst) view); its stream floor
+The cases: K1 on the (n_src, nv) layout; K1 as the stage-1 ``apply_ice``
+ran it (parameter "through transposes": the field copied from (nv, n_src)
+to (n_src, nv), the result returned as the transposed (nv, n_dst) view;
+``apply_ice`` now hands K1 the (nv, n) layout itself); its stream floor
 (``floor.cu:spmm_floor_ice``, the TPU bisect's ``stream`` level); every
 variant at every parameter; torch.sparse.mm computing K1's function, then
 each lower stage's (parameter: the stage); each on ``probe_k2.fields(n_src,
@@ -56,8 +57,8 @@ __all__ = ["REPS", "APPLY", "STAGE_LIBRARY", "ive", "cases", "host_ms",
            "run_cases", "main"]
 
 REPS = 50
-#: the parameter of K1's case run as apply_ice runs it
-APPLY = "as in apply_ice"
+#: the parameter of K1's case run as the stage-1 apply_ice ran it
+APPLY = "through transposes"
 #: library_spmm's options for the function of each lower stage
 STAGE_LIBRARY = {"gather": dict(vals=False, winv=False, clean=False),
                  "clean": dict(vals=False, winv=False),
@@ -89,25 +90,26 @@ def ive(config, device):
 
 def cases():
     """(kernel, parameter, wrapper, plain version, computes K1's function,
-    in K1's order) for every case a probe runs, K1 first, then K1 as in
-    apply_ice and its floor."""
+    the field that must hold, or None) for every case a probe runs, K1
+    first, then K1 through transposes and its floor; the cases in K1's
+    order give K1's bits (``equals_k1``)."""
     from icebin_tpu_torch.ops import k1probe as kp
     from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_ref
     from icebin_tpu_torch.ops.floor import spmm_floor_ice, spmm_floor_ice_ref
-    out = [("spmm_dest_ice", None, spmm_dest_ice, spmm_ref, True, True),
-           ("spmm_dest_ice", APPLY, spmm_dest_ice, spmm_ref, True, True),
-           ("spmm_floor_ice", None, spmm_floor_ice, spmm_floor_ice_ref, False,
-            False)]
+    out = [("spmm_dest_ice", p, spmm_dest_ice, spmm_ref, True, "equals_k1")
+           for p in (None, APPLY)]
+    out += [("spmm_floor_ice", None, spmm_floor_ice, spmm_floor_ice_ref,
+             False, None)]
     out += [("spmm_ice_slots", n, kp.spmm_ice_slots, kp.spmm_ice_slots_ref,
-             True, n == 1) for n in kp.SLOTS]
+             True, "equals_k1" if n == 1 else None) for n in kp.SLOTS]
     out += [("spmm_ice_batch", rb, kp.spmm_ice_batch, kp.spmm_ice_batch_ref,
-             True, True) for rb in kp.BATCH]
+             True, "equals_k1") for rb in kp.BATCH]
     out += [("spmm_ice_ablate", m, kp.spmm_ice_ablate, kp.spmm_ice_ablate_ref,
-             True, m == "row") for m in kp.MODES]
+             True, "equals_k1" if m == "row" else None) for m in kp.MODES]
     out += [("spmm_ice_stage", s, kp.spmm_ice_stage, kp.spmm_ice_stage_ref,
-             False, False) for s in kp.LEVELS]
+             False, None) for s in kp.LEVELS]
     out += [("spmm_ice_store", m, kp.spmm_ice_store, kp.spmm_ice_store_ref,
-             True, True) for m in kp.STORES]
+             True, "equals_k1") for m in kp.STORES]
     return out
 
 
@@ -117,7 +119,7 @@ def _calls(name, p, wrap, ref, csr, xt, xf):
     (n_src, nv) field, ``xf`` the same as (nv, n_src)."""
     nv = xt.shape[1]
     rows = (lambda a: a.t()) if p in (APPLY, "fields") else (lambda a: a)
-    if p == APPLY:       # ops/apply.py's _apply: one copy in, a view out
+    if p == APPLY:       # the stage-1 apply_ice: one copy in, a view out
         return (lambda: wrap(csr, xf.t().contiguous()).t(),
                 lambda: ref(csr, xf.t().contiguous()).t(), rows,
                 spmm_bound(csr, nv), None)

@@ -21,12 +21,16 @@ at every parameter; torch.sparse.mm; each on ``fields(n_src, nv,
 seed=nv)``, the field ``chip_smoke.py`` phase 13 runs them on.  Prints one
 JSON line per case (kernel and parameter, per ``--nv``): device
 ms (CUDA events over REPS calls after a sleep kernel) beside the bound
-(``spmm_bound``) and the plain version's ms (one call), max |kernel -
-plain| and whether they agree bit for bit, whether a rerun is
-bit-identical and whether the result equals K2's bit for bit, the raw error against the f64 oracle (max |out - oracle|
-/ max |oracle| over rows of nonzero weight; none for the floor, which
-computes another function), and the kernel's launches in the timed calls.
-On the CPU every ms is null: a CPU time is not the card's.
+(``spmm_bound``) and the plain version's ms (one call; K2's is
+``spmm_dest_small_ref``, which follows its order), max |kernel - plain|
+and whether they agree bit for bit, whether a rerun is bit-identical,
+whether the result equals K2's bit for bit (``equals_k2``) and the stage-1
+K2's, one warp a row over every row (``equals_stage1``: the order of
+``spmm_small_slots_ref(., 1)``, which slots(1) and group(1) keep), the raw
+error against the f64 oracle (max |out - oracle| / max |oracle| over rows
+of nonzero weight; none for the floor, which computes another function),
+and the kernel's launches in the timed calls.  On the CPU every ms is
+null: a CPU time is not the card's, and K2's wrapper runs ``spmm_ref``.
 """
 from __future__ import annotations
 
@@ -150,22 +154,28 @@ def evi(config, device):
 
 def cases():
     """(kernel, parameter, wrapper, plain version, computes K2's operator,
-    in K2's order) for every case a probe runs, K2 first: on the whole CSR,
-    then on its live rows alone (parameter "live rows"), then its floor."""
+    the field that must hold, or None) for every case a probe runs, K2
+    first: on the whole CSR, then on its live rows alone (parameter "live
+    rows", K2's bits: ``equals_k2``), then its floor.  slots(1) and
+    group(1) keep the stage-1 K2's order (``equals_stage1``)."""
     from icebin_tpu_torch.ops import k2probe as kp
-    from icebin_tpu_torch.ops.apply import spmm_dest_small, spmm_ref
+    from icebin_tpu_torch.ops.apply import (spmm_dest_small,
+                                            spmm_dest_small_ref)
     from icebin_tpu_torch.ops.floor import (spmm_floor_small,
                                             spmm_floor_small_ref)
-    out = [("spmm_dest_small", None, spmm_dest_small, spmm_ref, True, True),
-           ("spmm_dest_small", LIVE, spmm_dest_small, spmm_ref, True, True),
+    out = [("spmm_dest_small", None, spmm_dest_small, spmm_dest_small_ref,
+            True, None),
+           ("spmm_dest_small", LIVE, spmm_dest_small, spmm_dest_small_ref,
+            True, "equals_k2"),
            ("spmm_floor_small", None, spmm_floor_small, spmm_floor_small_ref,
-            False, False)]
+            False, None)]
     for wrap, ref, params in (
             (kp.spmm_small_slots, kp.spmm_small_slots_ref, kp.SLOTS),
             (kp.spmm_small_group, kp.spmm_small_group_ref, kp.GROUPS),
             (kp.spmm_small_batch, kp.spmm_small_batch_ref, kp.BATCH),
             (kp.spmm_small_ablate, kp.spmm_small_ablate_ref, kp.MODES)):
-        out += [(wrap.__name__, p, wrap, ref, True, p == 1) for p in params]
+        out += [(wrap.__name__, p, wrap, ref, True,
+                 "equals_stage1" if p == 1 else None) for p in params]
     return out
 
 
@@ -211,6 +221,8 @@ def run_cases(M, csr, x, reps=REPS):
         full[live_rows] = out
         return full
 
+    from icebin_tpu_torch.ops.k2probe import spmm_small_slots_ref
+    stage1 = spmm_small_slots_ref(csr, xt, 1)
     k2 = None
     res = []
     for name, p, wrap, ref, operator, _ in cases():
@@ -241,6 +253,7 @@ def run_cases(M, csr, x, reps=REPS):
             "equals_plain": same(got, want_plain),
             "rerun_identical": same(got, again),
             "equals_k2": same(got, k2),
+            "equals_stage1": same(got, stage1),
             "raw_err": raw(got) if operator else None,
             "launches": launches})
     spmm = library_spmm(csr, xt)

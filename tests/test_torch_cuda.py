@@ -20,10 +20,13 @@ agrees with its plain version (f64, rounded once) and with torch.bmm (TF32
 off) within 130 * 2**-24 of sum |T * F|.  The dest-small probe kernels
 (csrc/k2probe.cu) follow their plain versions' summation orders, so they
 agree bit for bit, also on data whose large terms cancel (any other order
-gives other bits); slots(1) and group(1) are K2's order, bit for bit
-spmm_dest_small.  So do the dest-ice probe kernels (csrc/k1probe.cu), and
-those in K1's order (slots(1), every batch, ablate row, stage scale, every
-store) are bit for bit spmm_dest_ice, signed zeros included.  The fold
+gives other bits); slots(1) and group(1) keep the stage-1 K2's order (a
+warp a row), bit for bit each other.  The stage-2 spmm_dest_small is bit
+for bit spmm_dest_small_ref, the plain version of its own order, at every
+geometry it has an instance for.  So do the dest-ice probe kernels
+(csrc/k1probe.cu), and those in K1's order (slots(1), every batch, ablate
+row, stage scale, every store) are bit for bit spmm_dest_ice, signed zeros
+included, in both of K1's field layouts.  The fold
 kernels (csrc/foldprobe.cu) and the shared-memory copies
 (csrc/smemprobe.cu) only move values (and double them), so they agree with
 their plain versions bit for bit.  A two-sheet coupler on the card
@@ -37,8 +40,10 @@ import numpy as np
 import pytest
 import torch
 
+from icebin_tpu_torch.ops import apply as ap
 from icebin_tpu_torch.ops.apply import (apply_ice, apply_small, spmm_dest_ice,
-                                        spmm_dest_small, spmm_ref)
+                                        spmm_dest_small, spmm_dest_small_ref,
+                                        spmm_ref)
 from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                        clip_areas_centroids_poly,
                                        clip_areas_centroids_poly_ref,
@@ -488,14 +493,15 @@ def test_k2probe_kernels_match_plain(cuda, nv):
     """Every dest-small probe kernel at every parameter bit for bit its
     plain version, on the synthetic EvI (a row of 600 nonzeros, NaN and inf
     sources) and on probe_k2.order_case's cancelling data; reruns
-    identical; slots(1) and group(1) bit for bit spmm_dest_small."""
+    identical; slots(1) and group(1) bit for bit each other, the stage-1
+    K2's order."""
     M = probe_k2.synth(seed=nv)
     evi = (csr_pack(M, nv=16, device=cuda).small,
            torch.as_tensor(probe_k2.fields(M.shape[1], nv, seed=nv),
                            device=cuda))
     csr, x = probe_k2.order_case(nv, nv, device=cuda)
     for c, xt in (evi, (csr, torch.as_tensor(x, device=cuda))):
-        k2 = spmm_dest_small(c, xt)
+        stage1 = kp.spmm_small_slots(c, xt, 1)
         for kern, ref, params in K2PROBES:
             for p in params:
                 n0 = kern.launches
@@ -506,7 +512,7 @@ def test_k2probe_kernels_match_plain(cuda, nv):
                 assert torch.equal(got, want), (kern.__name__, p)
                 assert torch.equal(got, kern(c, xt, p)), (kern.__name__, p)
                 if p == 1:
-                    assert torch.equal(got, k2), (kern.__name__, p)
+                    assert torch.equal(got, stage1), (kern.__name__, p)
 
 
 K1PROBES = ((k1p.spmm_ice_slots, k1p.spmm_ice_slots_ref, k1p.SLOTS),
@@ -584,6 +590,125 @@ def test_k1probe_store_buffers_on_the_card(cuda):
     with pytest.raises(ValueError):
         k1p.spmm_ice_batch(c, xt, 64)                      # no instance
     assert k1p.spmm_ice_store.launches == n0
+
+
+def stage2_cases(cuda, nv):
+    """(csr, (n_src, nv) field) pairs for the dest-small kernel: the
+    synthetic EvI without its rows 0-4 (empty rows, a row of 600 nonzeros,
+    NaN and inf sources) and probe_k2.order_case's cancelling data."""
+    M = probe_k2.synth(seed=nv)
+    keep = M.rows >= 5
+    M = WeightedMatrix(rows=M.rows[keep], cols=M.cols[keep],
+                       vals=M.vals[keep], shape=M.shape)
+    evi = (csr_pack(M, nv=16, device=cuda).small,
+           torch.as_tensor(probe_k2.fields(M.shape[1], nv, seed=nv),
+                           device=cuda))
+    csr, x = probe_k2.order_case(nv, nv, device=cuda)
+    return evi, (csr, torch.as_tensor(x, device=cuda))
+
+
+@pytest.mark.parametrize("nv", [1, 8, 16, 18, 40, 64, 136])
+def test_stage2_k2_bit_for_bit_its_plain_version(cuda, nv):
+    """spmm_dest_small bit for bit spmm_dest_small_ref (scale on and off),
+    not the stage-1 order's bits on cancelling data, one launch a call,
+    reruns identical, the empty rows +0.0."""
+    for c, xt in stage2_cases(cuda, nv):
+        for scale in (True, False):
+            n0 = spmm_dest_small.launches
+            got = spmm_dest_small(c, xt, scale)
+            assert spmm_dest_small.launches == n0 + 1
+            want = spmm_dest_small_ref(c, xt, scale)
+            torch.cuda.synchronize()
+            assert same(got, want), scale
+            assert same(got, spmm_dest_small(c, xt, scale))
+        empty = c.rowptr[1:] == c.rowptr[:-1]
+        assert not got[empty].any() and not torch.signbit(got[empty]).any()
+    assert not same(spmm_dest_small(c, xt), kp.spmm_small_slots(c, xt, 1))
+
+
+@pytest.mark.parametrize("nv", [16, 20, 64])
+def test_stage2_k2_every_geometry(cuda, nv):
+    """The dest-small kernel at every warps-per-row and unroll it has an
+    instance for, bit for bit the plain version at that many warps; a
+    geometry it has no instance for is refused before any launch."""
+    from icebin_tpu_torch.tools.sweep_spmm import UNROLL, WARPS
+    for c, xt in stage2_cases(cuda, nv):
+        for w in WARPS:
+            want = spmm_dest_small_ref(c, xt, True, w)
+            for u in UNROLL:
+                assert same(ap._small(c, xt, True, w, u), want), (w, u)
+    for w, u in ((0, 4), (33, 4), (8, 3)):
+        with pytest.raises(RuntimeError):
+            ap._small(c, xt, True, w, u)
+
+
+@pytest.mark.parametrize("nv", [1, 16, 20, 64])
+def test_k1_bit_for_bit_the_stage1_k1_in_both_layouts(cuda, nv):
+    """spmm_dest_ice on (n_src, nv) and on (nv, n_src), at every chunk and
+    register cap it has an instance for, bit for bit the stage-1 K1
+    (k1probe's slots(1), a thread an output, and ablate row), unscaled bit
+    for bit the weights stage; one launch a call; reruns identical; -0.0
+    kept."""
+    M = probe_k2.synth(seed=nv)
+    ive = (csr_pack(M, nv=16, device=cuda).ice,
+           torch.as_tensor(probe_k2.fields(M.shape[0], nv, seed=nv),
+                           device=cuda))
+    csr, x = probe_k2.order_case(nv, nv, device=cuda)
+    for c, xt in (ive, (csr, torch.as_tensor(x, device=cuda))):
+        xf = xt.t().contiguous()
+        stage1 = k1p.spmm_ice_slots(c, xt, 1)
+        assert same(stage1, k1p.spmm_ice_ablate(c, xt, "row"))
+        unscaled = k1p.spmm_ice_stage(c, xt, "weights")
+        n0 = spmm_dest_ice.launches
+        rows, fields = spmm_dest_ice(c, xt), spmm_dest_ice(c, xf, fields=True)
+        assert spmm_dest_ice.launches == n0 + 2
+        torch.cuda.synchronize()
+        assert same(rows, stage1) and same(fields.t(), stage1)
+        assert fields.is_contiguous() and fields.shape == (nv, c.n_dst)
+        assert same(rows, spmm_dest_ice(c, xt))
+        assert same(spmm_dest_ice(c, xf, False, fields=True).t(), unscaled)
+        for ch in (4, 8, 16, 32, 64):
+            for mb in (1, 8):
+                assert same(ap._ice(c, xt, True, False, ch, mb), stage1)
+                assert same(ap._ice(c, xf, True, True, ch, mb).t(), stage1)
+    from icebin_tpu_torch.ops.csr import csr_from_coo
+    c = csr_from_coo([0, 0, 1], [0, 1, 1], [1e-30, 1e-30, 1.0], 3, 2,
+                     [1.0, 1.0, 0.0], device=cuda)
+    x = torch.tensor([[-1e-30], [-2e-30]], device=cuda)
+    for got in (spmm_dest_ice(c, x), spmm_dest_ice(c, x.t().contiguous(),
+                                                   fields=True).t()):
+        assert bool(torch.signbit(got[0, 0])) and got[0, 0] == 0
+        assert same(got, k1p.spmm_ice_slots(c, x, 1))
+
+
+def test_apply_ice_runs_the_fields_layout(cuda):
+    """apply_ice hands (nv, n) to K1: one launch per nv-wide group, the
+    result contiguous and bit for bit the stage-1 apply_ice's transposes
+    path; a misaligned field (a view one float in) gives the same bits
+    through both kernels."""
+    M = probe_k2.synth(seed=6)
+    pack = csr_pack(M, nv=8, device=cuda)
+    f = torch.as_tensor(probe_k2.fields(M.shape[0], 13, seed=6).T.copy(),
+                        device=cuda)
+    n0 = spmm_dest_ice.launches
+    got = apply_ice(pack, f)
+    assert spmm_dest_ice.launches == n0 + 2 and got.is_contiguous()
+    old = torch.cat([spmm_dest_ice(pack.ice, f[k:k + 8].t().contiguous()).t()
+                     for k in range(0, 13, 8)])
+    assert same(got, old)
+    for kern, csr in ((spmm_dest_small, pack.small), (spmm_dest_ice,
+                                                      pack.ice)):
+        x = torch.as_tensor(probe_k2.fields(csr.n_src, 16, seed=1),
+                            device=cuda)
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        moved = buf[1:].view(x.shape).copy_(x)
+        assert moved.data_ptr() % 16 != 0
+        assert same(kern(csr, moved), kern(csr, x)), kern.__name__
+    with pytest.raises(ValueError):
+        spmm_dest_ice(pack.ice, f[:8].t().contiguous(), fields=True)
+    for ch, u in ((0, 4), (12, 4), (48, 4), (16, 2)):
+        with pytest.raises(RuntimeError):
+            ap._ice(pack.ice, f[:8].contiguous(), True, True, ch, u)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -2,7 +2,7 @@
 of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
 coupler, the overlap CLI, the run CLI, ``ModelEAdapter.couple_native`` and
 a gcmce shim round trip, nor after the entry points of the dest-small,
-dest-ice, fold and capacity probes;
+dest-ice, fold and capacity probes and the regrid kernels' geometry sweep;
 chip_smoke.py imports only the port and refuses to run without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
@@ -198,6 +198,14 @@ def test_probe_k1_imports_no_jax():
     package."""
     n, mods = _probe_run("probe_k1")
     assert n == 21
+    assert mods == "[]", mods
+
+
+def test_sweep_spmm_imports_no_jax():
+    """The regrid kernels' geometry sweep (tools/sweep_spmm.py) on the CPU,
+    in an interpreter that never imports JAX nor the reference package."""
+    n, mods = _probe_run("sweep_spmm")
+    assert n == 43
     assert mods == "[]", mods
 
 
