@@ -13,9 +13,16 @@ Antarctica 5 km (config #5) and drive both sheets through the ModelE C
 ABI.
 Phases, each of which exits non-zero on failure:
 
-1. build   every kernel of csrc/ with nvcc for sm_90a;
-2. clip    the clip kernel against its plain version on all candidate
-           pairs of the Greenland build;
+1. build   every kernel of csrc/ with nvcc for sm_90a; each clip
+           instance's registers, stack frame and spills from the build
+           log, failing if a stage-2 clip instance has a stack frame or
+           spills;
+2. clip    the clip kernel (stage 2, the register pipeline) against its
+           plain version on all candidate pairs of the Greenland build,
+           bit for bit clip_stream_model on 4,096 seeded pairs, within
+           1e-5 of the f64 oracle on them, and within 1e-6 of the cell
+           area of the stage-1 kernel on every pair (the pairs whose areas
+           differ in any bit counted), timed beside stage 1;
 3. main    the main path, with every launch counter set to 0 just before
            it and read just after: exchange build, coupler construction,
            6 stepwise steps, one fused window.  The exchange grid must
@@ -40,7 +47,9 @@ Phases, each of which exits non-zero on failure:
            before make_exchange_grid builds it through the convex-clip
            kernel and read just after.  Column sums (repaired and raw),
            the convex-clip kernel against its plain version on every pair
-           and a seeded sample against the f64 oracle, concave cells, the
+           and a seeded sample against the f64 oracle, against
+           clip_stream_model and the stage-1 kernel as phase 2 holds the
+           clip kernel, concave cells, the
            exchange grid's AvI/IvA through the regrid kernels, and the
            overlap CLI against the in-process build;
 8. run     the standalone run CLI (icebin_tpu_torch.cli.run.main) at full
@@ -55,8 +64,8 @@ Phases, each of which exits non-zero on failure:
            its launch counter set to 0 just before the timed runs;
 10. multisheet  BASELINE config #5 as bench.py:413-496 builds it:
            Antarctica 5 km (1120 x 1120 south polar stereographic cells)
-           beside Greenland under one ModelE regridder.  The clip kernel
-           against its plain version on all of Antarctica's pairs; its
+           beside Greenland under one ModelE regridder.  Phase 2's checks
+           on all of Antarctica's pairs; its
            exchange build with the launch counters set to 0 just before
            and read just after, against the f64 host build; one
            GCMCoupler on both sheets (6 stepwise steps, deferred ledger,
@@ -123,9 +132,10 @@ import time
 
 import numpy as np
 
-from icebin_tpu_torch.tools.common import (HCDEFS, PEAK_BYTES_S,
+from icebin_tpu_torch.tools.common import (HCDEFS, HEX_R, PEAK_BYTES_S,
                                            antarctica_spec, bound, card_name,
-                                           greenland_specs, library_spmm,
+                                           clip_bound, greenland_specs,
+                                           hex_mesh, library_spmm,
                                            spmm_bound, time_ms)
 from icebin_tpu_torch.tools.probe_k1 import APPLY
 from icebin_tpu_torch.tools.probe_k2 import LIVE
@@ -135,12 +145,13 @@ REGEN = 3
 TRANSPORT_TOL = 1e-10
 RAW_TOL = 5e-7            # tests/test_accuracy_contract.py's 6-pass bound
 COLSUM_TOL = 1e-12
-HEX_R = 3102.0            # hexagon circumradius, m: 25.0 km2 per cell
 ROOF_SHAPES = ((2048, 32 * 128), (524288, 128))   # 34 MB and 268 MB f32
 SHEETS = ("greenland", "antarctica")
 MS_N1, MS_N2 = 16, 48     # steps of the two-point steps/s, as bench.py
 PRODS_ROWS = (2048, 15360)   # tools/probe_prods_scale.py: 44 and 330 MB
 PRODS_TOL = 130 * 2.0 ** -24  # f32 FMA chain of 128 terms, of sum |T * F|
+MODEL_PAIRS = 4096        # seeded pairs a build's stage-2 clip is held to
+                          # clip_stream_model on, bit for bit
 CARD = ""
 
 
@@ -182,10 +193,44 @@ def forcing(nE, seed=0):
 
 # -- phase 2: the clip kernel against its plain version --------------------
 
+def check_stage2(tag, a, c, p, q, compact, cell, idx):
+    """The stage-2 clip's areas ``a`` and centroids ``c`` on inputs (p, q):
+    bit for bit ``clip_stream_model`` on the seeded pairs ``idx``, and
+    within 1e-6 of the cell areas ``cell`` of the stage-1 kernel
+    ``compact`` on every pair, with the pairs whose areas differ in any bit
+    counted.  Returns the stage-1 kernel's ms."""
+    import torch
+    from icebin_tpu_torch.ops.clip import clip_stream_model
+    from icebin_tpu_torch.tools.common import same
+    it = torch.as_tensor(idx, device=p.device)
+    a_m, c_m = clip_stream_model(p[it].cpu().numpy(), q[it].cpu().numpy())
+    model = (same(a[it].cpu(), torch.as_tensor(a_m))
+             and same(c[it].cpu(), torch.as_tensor(c_m)))
+    a1, _ = compact(p, q)
+    differ = int((a.view(torch.int32) != a1.view(torch.int32)).sum())
+    rel1 = ((a.double() - a1.double()).abs() / cell).max().item()
+    stage1_ms = time_ms(lambda: compact(p, q), 20)
+    say(f"{tag}: stage 2 bit for bit clip_stream_model on {len(idx)} seeded "
+        f"pairs {model}; against stage 1 {differ} of {p.shape[0]} pairs "
+        f"differ in some bit of the area, max |area - stage 1| / cell area "
+        f"{rel1:.3e} (limit 1e-6); stage 1 {stage1_ms:.4f} ms")
+    check(model, f"{tag}: stage 2 is not bit for bit clip_stream_model")
+    check(rel1 < 1e-6, f"{tag}: stage 2 off stage 1 by {rel1:.3e}")
+    return stage1_ms
+
+
+def sample(n, seed):
+    """MODEL_PAIRS seeded pair indices of n, sorted."""
+    return np.sort(np.random.default_rng(seed).choice(
+        n, min(MODEL_PAIRS, n), replace=False))
+
+
 def phase_clip(specA, specI, device, tag="clip"):
     import torch
     from icebin_tpu_torch.grid import clip_pairs
+    from icebin_tpu_torch.grid.exchange import clip_rect_host
     from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
+                                           clip_areas_centroids_compact,
                                            clip_areas_centroids_ref,
                                            recentre_pairs)
     pairA, pairI, subj, rect = clip_pairs(specA, specI, subdiv=2)
@@ -210,26 +255,24 @@ def phase_clip(specA, specI, device, tag="clip"):
     check(err_a < 1e-5, f"clip areas disagree with the plain version "
                         f"({err_a:.3e})")
     check(err_c < 1e-4, f"clip centroids disagree ({err_c:.3e})")
+    idx = sample(len(pairA), 5)
+    a_o, _ = clip_rect_host(subj[idx], rect[idx])
+    err_o = np.max(np.abs(np.abs(a.cpu().numpy()[idx].astype(np.float64))
+                          - a_o) / specI.cell_areas()[pairI[idx]])
+    say(f"{tag}: max |area - f64 oracle| / cell area {err_o:.3e} on "
+        f"{len(idx)} seeded pairs (limit 1e-5)")
+    check(err_o < 1e-5, f"clip areas vs f64 oracle {err_o:.3e}")
+    stage1_ms = check_stage2(tag, a, c, p, r, clip_areas_centroids_compact,
+                             cell, idx)
     ms = time_ms(lambda: clip_areas_centroids(p, r), 20)
     plain_ms = time_ms(lambda: clip_areas_centroids_ref(p, r), 3)
     bound_ms, bound_by = clip_bound(p, r)
-    say(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}) per {len(pairA)} pairs; no single "
-        f"PyTorch call clips polygons")
+    say(f"{tag}: kernel {ms:.4f} ms (stage 1 {stage1_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) per "
+        f"{len(pairA)} pairs; no single PyTorch call clips polygons")
     return {"pairs": len(pairA), "max_abs_err": abs_err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": bound_by}
-
-
-def clip_bound(polys, other):
-    """Least time of a clip kernel: its inputs read once, areas and
-    centroids written once; operations counted low (one distance per input
-    vertex and clip edge, and the shoelace's 6 per vertex), since the
-    bytes bound either way."""
-    B, v0 = polys.shape[0], polys.shape[1]
-    edges = 4 if other.dim() == 2 else other.shape[1]
-    return bound(4 * (polys[0].numel() + other[0].numel() + 3) * B,
-                 (edges + 6) * v0 * B)
+            "stage1_ms": stage1_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 # -- phase 3: the main path ------------------------------------------------
@@ -554,27 +597,6 @@ def phase_toy(device):
 
 # -- phase 7: the generic-polygon path -------------------------------------
 
-def hex_mesh(specI):
-    """Greenland as pointy-top regular hexagons of HEX_R circumradius (25.0
-    km2, the area of the main path's 5 km cells) in ``specI``'s plane:
-    centres 5,373 m apart in x and 4,653 m in y, odd rows offset by half,
-    inside ``specI``'s box; vertices inverse-projected to lon/lat."""
-    from icebin_tpu_torch.grid import GridSpecGeneric
-    dx, dy = np.sqrt(3.0) * HEX_R, 1.5 * HEX_R
-    x0, x1, y0, y1 = specI.xb[0], specI.xb[-1], specI.yb[0], specI.yb[-1]
-    ys = np.arange(y0, y1, dy)
-    xs = (np.arange(x0, x1, dx), np.arange(x0 + dx / 2, x1, dx))
-    cx = np.concatenate([xs[j % 2] for j in range(len(ys))])
-    cy = np.concatenate([np.full(len(xs[j % 2]), y) for j, y in enumerate(ys)])
-    ang = np.radians(30.0 + 60.0 * np.arange(6))
-    vx = cx[:, None] + HEX_R * np.cos(ang)[None, :]
-    vy = cy[:, None] + HEX_R * np.sin(ang)[None, :]
-    lon, lat = specI.projection.xy2ll(vx, vy)
-    return GridSpecGeneric(polygons=np.stack([lon, lat], axis=-1),
-                           projection=specI.projection,
-                           name="greenland_hex_25km2")
-
-
 def tri_grid(x0, x1, y0, y1, n):
     """2 n^2 triangles tiling [x0, x1] x [y0, y1] (lon/lat degrees)."""
     xs, ys = np.linspace(x0, x1, n + 1), np.linspace(y0, y1, n + 1)
@@ -648,14 +670,14 @@ def phase_polyclip(specA, specI, device, counters):
     from icebin_tpu_torch.grid import (assemble_polyclip, clip_poly_host,
                                        make_exchange_grid, polyclip_pairs,
                                        polyclip_pieces)
-    from icebin_tpu_torch.ops.clip import (clip_areas_centroids_poly,
-                                           clip_areas_centroids_poly_ref,
-                                           make_polyclip_engine,
-                                           recentre_poly_pairs)
+    from icebin_tpu_torch.ops.clip import (
+        clip_areas_centroids_poly, clip_areas_centroids_poly_compact,
+        clip_areas_centroids_poly_ref, make_polyclip_engine,
+        recentre_poly_pairs)
     from icebin_tpu_torch.ops.csr import csr_pack
     from icebin_tpu_torch.regrid import WeightedMatrix
 
-    hexes, mesh_ms = wall_ms(lambda: hex_mesh(specI))
+    hexes, mesh_ms = wall_ms(lambda: hex_mesh(specI, HEX_R))
     areas = np.abs(hexes.plane_areas())
     _, pieces_ms = wall_ms(lambda: polyclip_pieces(hexes))
     (pairA, pairI, subj, clip, p2c), pairs_ms = wall_ms(
@@ -694,7 +716,7 @@ def phase_polyclip(specA, specI, device, counters):
     p, q, _ = recentre_poly_pairs(subj, clip)
     p = torch.as_tensor(p, device=device)
     q = torch.as_tensor(q, device=device)
-    a, _ = clip_areas_centroids_poly(p, q)
+    a, c = clip_areas_centroids_poly(p, q)
     a_ref, _ = clip_areas_centroids_poly_ref(p, q)
     cell = torch.as_tensor(areas[p2c[pairI]], device=device)
     err = ((a.double() - a_ref.double()).abs() / cell).max().item()
@@ -705,6 +727,9 @@ def phase_polyclip(specA, specI, device, counters):
     a_o, _ = clip_poly_host(subj[idx], clip[idx])
     err_o = np.max(np.abs(np.abs(a.cpu().numpy()[idx].astype(np.float64))
                           - a_o) / areas[p2c[pairI[idx]]])
+    stage1_ms = check_stage2("polyclip", a, c, p, q,
+                             clip_areas_centroids_poly_compact, cell,
+                             sample(len(pairA), 5))
     ms = time_ms(lambda: clip_areas_centroids_poly(p, q), 20)
     plain_ms = time_ms(lambda: clip_areas_centroids_poly_ref(p, q), 2)
     bound_ms, bound_by = clip_bound(p, q)
@@ -712,8 +737,8 @@ def phase_polyclip(specA, specI, device, counters):
         f"{p.shape[1]}, Vc={q.shape[1]}: max |area - plain| / hexagon area "
         f"{err:.3e} (limit 1e-5), max |area - f64 oracle| / hexagon area "
         f"{err_o:.3e} on {len(idx)} seeded pairs (limit 1e-5); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        f"{ms:.4f} ms (stage 1 {stage1_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
     check(err < 1e-5, f"convex-clip kernel vs plain {err:.3e}")
     check(err_o < 1e-5, f"convex-clip kernel vs f64 oracle {err_o:.3e}")
 
@@ -723,8 +748,9 @@ def phase_polyclip(specA, specI, device, counters):
     check_pack(M, csr_pack(M, nv=16, device=device), ("AvI", "IvA"),
                np.random.default_rng(3))
     check_overlap_cli(specA, specI, device)
-    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"max_abs_err": abs_err, "ms": ms, "stage1_ms": stage1_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "launches": launches["clip_areas_centroids_poly"]}
 
 
@@ -1558,6 +1584,39 @@ def phase_smemfold(device):
     return res
 
 
+def check_clip_build(log):
+    """Each clip instance's registers, stack frame and spills from the
+    build log (nvcc -Xptxas -v); fails if a stage-2 instance
+    (clip_stream_kernel<V0, VC, min blocks, route>; VC 0: rectangles) has
+    a stack frame or spills."""
+    import re
+    stats, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?"
+                      r"(clip_(?:stream|rect|poly)_kernel)I((?:Li\d+E)+)",
+                      line)
+        if m:
+            name = (m.group(1), tuple(map(int, re.findall(r"\d+",
+                                                          m.group(2)))))
+            stats[name] = {}
+        elif name and "stack frame" in line:
+            st, ss, sl = map(int, re.findall(r"(\d+) bytes", line))
+            stats[name].update(stack=st, spill_stores=ss, spill_loads=sl)
+        elif name and "registers" in line:
+            stats[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    check(any(k[0] == "clip_stream_kernel" for k in stats),
+          "the build log lists no clip instance")
+    for (kern, args), st in sorted(stats.items()):
+        say(f"clip build: {kern}<{', '.join(map(str, args))}> {st}")
+        check(kern != "clip_stream_kernel"
+              or (st.get("stack", 1) == 0 and st.get("spill_stores", 1) == 0
+                  and st.get("spill_loads", 1) == 0),
+              f"stage-2 clip instance {kern}<{args}> has a stack frame or "
+              f"spills: {st}")
+
+
 def main():
     global CARD
     import torch
@@ -1579,6 +1638,7 @@ def main():
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("entry function", "registers", "spill")):
             say(f"ptxas: {line.strip()}")
+    check_clip_build(_build.build_log())
 
     specA, specI = greenland_specs()
     clip = phase_clip(specA, specI, device)
@@ -1635,10 +1695,13 @@ def main():
     kernels = [
         spmm_row("spmm_dest_ice", "IvE"),
         spmm_row("spmm_dest_small", "EvI"),
-        row("clip_areas_centroids", "icebin_tpu_torch/csrc/clip.cu",
-            "icebin_tpu/ops/pallas_clip.py:142", clip),
-        row("clip_areas_centroids_poly", "icebin_tpu_torch/csrc/clip.cu",
-            "icebin_tpu/ops/pallas_clip.py:120", poly),
+        dict(row("clip_areas_centroids", "icebin_tpu_torch/csrc/clip.cu",
+                 "icebin_tpu/ops/pallas_clip.py:142", clip),
+             stage1_ms=clip["stage1_ms"]),
+        dict(row("clip_areas_centroids_poly",
+                 "icebin_tpu_torch/csrc/clip.cu",
+                 "icebin_tpu/ops/pallas_clip.py:120", poly),
+             stage1_ms=poly["stage1_ms"]),
         row("stream_reduce", "icebin_tpu_torch/csrc/roof.cu",
             "tools/bench_roof.py:58 and tools/probe_stream_scale.py:40",
             roof),

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "spmm_dest_ice": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
     "clip_rect": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
     "clip_poly": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
+    "clip_rect_compact": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
+    "clip_poly_compact": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
+    "clip_stream_at": ((_P,) * 4 + (_I,) * 6 + (_P,), _I),
     "stream_reduce": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
     "spmm_floor_small": ((_P,) * 6 + (_I,) * 2 + (_P,), _I),
     "spmm_floor_ice": ((_P,) * 6 + (_I,) * 2 + (_P,), _I),

@@ -11,13 +11,15 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["HCDEFS", "PEAK_BYTES_S", "PEAK_F32_FLOP_S", "bound",
-           "spmm_bound", "time_once", "time_ms", "card_name", "same",
-           "max_diff", "library_spmm", "greenland_specs", "antarctica_spec"]
+__all__ = ["HCDEFS", "HEX_R", "PEAK_BYTES_S", "PEAK_F32_FLOP_S",
+           "bound", "spmm_bound", "clip_bound", "time_once", "time_ms",
+           "card_name", "same", "max_diff", "library_spmm",
+           "greenland_specs", "antarctica_spec", "hex_mesh"]
 
 HCDEFS = [0.0, 500.0, 1000.0, 2000.0, 3500.0]   # bench.py's 5 classes
 SEARISE = "+proj=stere +lat_0=90 +lat_ts=71 +lon_0=-39 +ellps=WGS84"
 ANTARCTICA = "+proj=stere +lat_0=-90 +lat_ts=-71 +lon_0=0 +ellps=WGS84"
+HEX_R = 3102.0            # hexagon circumradius, m: 25.0 km2 a cell
 ANT_R = 2800e3            # bench.py:101-113's half-width: 1120 x 1120 at 5 km
 # H100 SXM data sheet at 700 W: HBM rate and f32 rate outside the tensor
 # cores, for each kernel's least time (bound)
@@ -74,6 +76,17 @@ def spmm_bound(csr, nv, vals=True, winv=True, reads_out=False):
                       + (csr.n_dst if winv else 0))
                  + 4 * nv * (used + (2 if reads_out else 1) * csr.n_dst),
                  (2 if vals else 1) * nnz * nv)
+
+
+def clip_bound(polys, other):
+    """Least time of a clip kernel: its inputs read once, areas and
+    centroids written once; operations counted low (one distance per input
+    vertex and clip edge, and the shoelace's 6 per vertex), since the
+    bytes bound either way."""
+    B, v0 = polys.shape[0], polys.shape[1]
+    edges = 4 if other.dim() == 2 else other.shape[1]
+    return bound(4 * (polys[0].numel() + other[0].numel() + 3) * B,
+                 (edges + 6) * v0 * B)
 
 
 def same(a, b):
@@ -143,3 +156,25 @@ def antarctica_spec(res_km=5.0):
     b = np.linspace(-ANT_R, ANT_R, n + 1)
     return GridSpecXY(xb=b, yb=b, projection=ANTARCTICA,
                       name=f"antarctica_{res_km:g}km")
+
+
+def hex_mesh(specI, r):
+    """Greenland as pointy-top regular hexagons of circumradius ``r`` (m;
+    3,102 m gives 25.0 km2, the area of the main path's 5 km cells) in
+    ``specI``'s plane: centres sqrt(3) r apart in x and 1.5 r in y, odd
+    rows offset by half, inside ``specI``'s box; vertices inverse-projected
+    to lon/lat."""
+    from icebin_tpu_torch.grid import GridSpecGeneric
+    dx, dy = np.sqrt(3.0) * r, 1.5 * r
+    x0, x1, y0, y1 = specI.xb[0], specI.xb[-1], specI.yb[0], specI.yb[-1]
+    ys = np.arange(y0, y1, dy)
+    xs = (np.arange(x0, x1, dx), np.arange(x0 + dx / 2, x1, dx))
+    cx = np.concatenate([xs[j % 2] for j in range(len(ys))])
+    cy = np.concatenate([np.full(len(xs[j % 2]), y) for j, y in enumerate(ys)])
+    ang = np.radians(30.0 + 60.0 * np.arange(6))
+    vx = cx[:, None] + r * np.cos(ang)[None, :]
+    vy = cy[:, None] + r * np.sin(ang)[None, :]
+    lon, lat = specI.projection.xy2ll(vx, vy)
+    return GridSpecGeneric(polygons=np.stack([lon, lat], axis=-1),
+                           projection=specI.projection,
+                           name="greenland_hex_25km2")

@@ -8,9 +8,14 @@ suite's conftest:
 
 Tolerances: the spmm kernels and their plain version both sum in f64 and
 round once to f32, so they agree to one f32 ulp of the output; the clip
-kernel sums its compacted ring's shoelace in f64 where the plain version
+kernel sums its clipped ring's shoelace in f64 where the plain version
 sums 16 * V0 slots in f32, so areas agree to 1e-5 of the ring's scale; the
-convex-clip kernel likewise against V0 * 2**Vc slots; the stream-reduce
+convex-clip kernel likewise against V0 * 2**Vc slots.  Every stage-2 clip
+instance (csrc/clip.cu's register pipeline, at every geometry it has) is
+bit for bit ops/clip.py:clip_stream_model, which rounds each operation as
+the kernel does; against the stage-1 kernel (the same vertices up to the
+last bit of an FMA-contracted crossing point, the shoelace summed from
+another vertex) areas agree to 1e-6 of the ring's scale.  The stream-reduce
 kernel sums in f64 where its plain version sums in f32, so they agree to
 1e-5 of sum |x|; a resumed coupler is bit for bit the one that was not
 interrupted (no float atomics anywhere in a step).  The stream-only floors
@@ -44,6 +49,7 @@ from icebin_tpu_torch.ops import apply as ap
 from icebin_tpu_torch.ops.apply import (apply_ice, apply_small, spmm_dest_ice,
                                         spmm_dest_small, spmm_dest_small_ref,
                                         spmm_ref)
+from icebin_tpu_torch.ops import clip as cl
 from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                        clip_areas_centroids_poly,
                                        clip_areas_centroids_poly_ref,
@@ -215,6 +221,137 @@ def test_convex_clip_kernel_matches_plain(cuda, V0, Vc):
     big = a_r.abs() > 1e-2
     assert float((c - c_r)[big].abs().max()) < 1e-4
     assert torch.equal(a, clip_areas_centroids_poly(p, q)[0])
+
+
+def clip_cases(V0, Vc, seed=0, B=64):
+    """Clip pairs that reach every branch of a clip stage, as the engines
+    recentre them: subject rings (B + 12, V0, 2) -- random convex rings of
+    3..V0 vertices duplicate-padded, combs (``comb_rings``), an L-shaped
+    (non-convex) ring, rings wholly inside and wholly outside the clip, a
+    ring around the whole clip, one sharing only an edge with it (a
+    degenerate overlap) and a collinear one -- against centred rectangles
+    (B + 12, 4) for ``Vc = 0``, else convex CCW clip rings of Vc vertices,
+    duplicate-padded to 4 or 8 slots (every third with a zero-length edge
+    inside the ring) and recentred on the mean of their slots.  f32 numpy
+    arrays.""" 
+    rng = np.random.default_rng(seed + 100 * V0 + Vc)
+    n = rng.integers(3, V0 + 1, B)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (B, V0)), axis=1)
+    ang = np.take_along_axis(ang, np.minimum(np.arange(V0)[None, :],
+                                             n[:, None] - 1), axis=1)
+    r = rng.uniform(0.2, 1.5, (B, 1))
+    polys = np.stack([r * np.cos(ang), r * np.sin(ang)], -1)
+    polys[1::2] = comb_rings(rng, B // 2, V0)
+    th = 0.1 + 2 * np.pi * np.arange(V0) / V0
+    unit = np.stack([np.cos(th), np.sin(th)], -1)     # a regular V0-gon
+    L = np.array([[0, 0], [2, 0], [2, 1], [1, 1], [1, 2], [0, 2]], float)
+    L = np.concatenate([L, np.repeat(L[-1:], V0 - 6, 0)])
+    line = np.stack([np.linspace(-1, 1, V0), np.linspace(-0.5, 0.5, V0)], -1)
+    side = np.array([[0.1, -0.1], [0.9, -0.1], [0.9, 0.1], [0.1, 0.1]])
+    side = np.concatenate([side, np.repeat(side[-1:], V0 - 4, 0)])
+    extra = [L - 1.0, L - [0.5, 1.5], L * 0.3 - 0.3,   # L across, inside
+             0.05 * unit, 0.05 * unit + 0.02,         # wholly inside
+             0.5 * unit + 5.0, 0.5 * unit - [0.0, 7.0],   # wholly outside
+             20.0 * unit, 9.0 * unit[::-1],           # around the clip
+                                                      # (the second CW)
+             line, 0.0 * line,                        # collinear, a point
+             side]                                    # an edge shared
+    polys = np.concatenate([polys, np.array(extra)]).astype(np.float32)
+    m = len(polys)
+    if Vc == 0:
+        h = rng.uniform(0.1, 1.0, (m, 2))
+        h[-1] = (0.1, 0.1)         # the last ring's left edge is x = 0.1
+        return polys, np.stack([-h[:, 0], -h[:, 1], h[:, 0], h[:, 1]],
+                               -1).astype(np.float32)
+    kc = 4 if Vc <= 4 else 8
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (m, Vc)), axis=1)
+    rc = rng.uniform(0.5, 1.2, (m, 1))
+    ring = np.stack([rc * np.cos(ang), rc * np.sin(ang)], -1)
+    slot = np.minimum(np.arange(kc), Vc - 1)[None, :].repeat(m, 0)
+    j = rng.integers(0, Vc - 1, m)            # a zero-length edge at j
+    inner = (np.arange(m) % 3 == 0) & (Vc < kc)
+    slot[inner] = np.minimum(np.arange(kc)[None, :]
+                             - (np.arange(kc)[None, :] > j[inner, None]),
+                             Vc - 1)
+    clips = np.take_along_axis(ring, slot[:, :, None], axis=1)
+    clips -= clips.mean(axis=1, keepdims=True)   # as recentre_poly_pairs
+    side_clip = np.array([[0.1, -0.1], [0.1, 0.1], [-0.1, 0.1],
+                          [-0.1, -0.1]])
+    clips[-1] = np.concatenate([side_clip, np.repeat(side_clip[-1:],
+                                                     kc - 4, 0)])
+    return polys, clips.astype(np.float32)
+
+
+def stream_shapes():
+    """(V0, Vc) of every stage-2 instance; Vc = 0 clips rectangles."""
+    return [(v0, vc) for vc in (0,) + cl.KERNEL_VC for v0 in cl.KERNEL_V0]
+
+
+def clip_inputs(V0, Vc, cuda):
+    """``clip_cases`` (12 clip rings of 3..Vc vertices for Vc in 4, 8)
+    followed by 4,096 seeded pairs, on the card."""
+    vcs = [Vc] if Vc == 0 else [v for v in (3, 4, 6, 8)
+                                if (4 if v <= 4 else 8) == Vc]
+    parts = [clip_cases(V0, v, seed=1) for v in vcs]
+    parts.append(clip_cases(V0, Vc, seed=2, B=4096 - 12))
+    P = np.concatenate([p for p, _ in parts])
+    Q = np.concatenate([q for _, q in parts])
+    return P, Q, (torch.as_tensor(P, device=cuda),
+                  torch.as_tensor(Q, device=cuda))
+
+
+@pytest.mark.parametrize("V0,Vc", stream_shapes())
+def test_stage2_clip_bit_for_bit_the_model(cuda, V0, Vc):
+    """Every stage-2 instance (threads, min blocks, route) and the wrapper's
+    rule, bit for bit clip_stream_model, signed zeros included."""
+    from icebin_tpu_torch.tools.sweep_clip import MIN_BLOCKS, SWEPT, THREADS
+    P, Q, (p, q) = clip_inputs(V0, Vc, cuda)
+    a_m, c_m = (torch.as_tensor(t, device=cuda)
+                for t in cl.clip_stream_model(P, Q))
+    wrap = clip_areas_centroids if Vc == 0 else clip_areas_centroids_poly
+    runs = {"rule": lambda: wrap(p, q)}
+    for threads in THREADS:
+        for mb in MIN_BLOCKS if (V0, Vc) in SWEPT else (1,):
+            for route in cl.ROUTES:
+                runs[(threads, mb, route)] = (
+                    lambda t=threads, m=mb, r=route:
+                    cl.clip_stream_at(p, q, t, m, r))
+    for geometry, fn in runs.items():
+        a, c = fn()
+        torch.cuda.synchronize()
+        assert same(a, a_m) and same(c, c_m), geometry
+
+
+@pytest.mark.parametrize("V0,Vc", stream_shapes())
+def test_stage2_clip_against_stage1_and_plain(cuda, V0, Vc):
+    """Stage 2 within 1e-6 of the clip's area of stage 1 and within the
+    existing limits of the plain version (1e-5 of the ring's scale in area,
+    1e-4 in centroid where the overlap is not a sliver); each entry point
+    counts its launches."""
+    _, _, (p, q) = clip_inputs(V0, Vc, cuda)
+    if Vc == 0:
+        wrap, compact = clip_areas_centroids, cl.clip_areas_centroids_compact
+        ref = clip_areas_centroids_ref
+    else:
+        wrap = clip_areas_centroids_poly
+        compact = cl.clip_areas_centroids_poly_compact
+        ref = clip_areas_centroids_poly_ref
+    n2, n1 = wrap.launches, compact.launches
+    a, c = wrap(p, q)
+    a1, c1 = compact(p, q)
+    assert (wrap.launches, compact.launches) == (n2 + 1, n1 + 1)
+    a_r, c_r = ref(p, q)
+    torch.cuda.synchronize()
+    if Vc == 0:
+        clip_area = (q[:, 2] - q[:, 0]) * (q[:, 3] - q[:, 1])
+    else:
+        x, y = q[:, :, 0], q[:, :, 1]
+        clip_area = 0.5 * (x * y.roll(-1, 1) - x.roll(-1, 1) * y).sum(1)
+    assert float(((a - a1).abs() / clip_area).max()) < 1e-6
+    assert float((a - a_r).abs().max()) < 1e-5
+    big = a_r.abs() > 1e-2
+    assert float((c - c_r)[big].abs().max()) < 1e-4
+    assert float((c - c1)[big].abs().max()) < 1e-4
 
 
 def test_wrappers_raise_on_bad_cuda_operands(cuda):

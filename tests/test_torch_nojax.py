@@ -2,7 +2,8 @@
 of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
 coupler, the overlap CLI, the run CLI, ``ModelEAdapter.couple_native`` and
 a gcmce shim round trip, nor after the entry points of the dest-small,
-dest-ice, fold and capacity probes and the regrid kernels' geometry sweep;
+dest-ice, fold and capacity probes and the regrid and clip kernels' geometry
+sweeps;
 chip_smoke.py imports only the port and refuses to run without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
@@ -150,7 +151,8 @@ def test_port_source_imports_nothing_of_the_reference():
             "ops/prods.py", "ops/k2probe.py", "ops/k1probe.py",
             "ops/_probe.py", "tools/__init__.py", "tools/common.py", "tools/probe_k2.py",
             "tools/probe_k1.py", "ops/foldprobe.py", "ops/smemprobe.py",
-            "tools/probe_fold_ops.py", "tools/probe_vmem.py"} <= names
+            "tools/probe_fold_ops.py", "tools/probe_vmem.py",
+            "tools/sweep_clip.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f)
                                             if m.split(".")[0] in
                                             ("icebin_tpu", "jax", "jaxlib"))
@@ -206,6 +208,17 @@ def test_sweep_spmm_imports_no_jax():
     in an interpreter that never imports JAX nor the reference package."""
     n, mods = _probe_run("sweep_spmm")
     assert n == 43
+    assert mods == "[]", mods
+
+
+def test_sweep_clip_imports_no_jax():
+    """The clip kernels' geometry sweep (tools/sweep_clip.py) on the CPU:
+    12 geometries, the rule, stage 1 and the divergence count for each kind
+    of clip, in an interpreter that never imports JAX nor the reference
+    package."""
+    n, mods = _probe_run("sweep_clip", ("--config", "synth", "--device",
+                                        "cpu"))
+    assert n == 2 * (12 + 1 + 1 + 1)
     assert mods == "[]", mods
 
 
