@@ -110,7 +110,26 @@ Phases, each of which exits non-zero on failure:
            shared memory and in a cluster of 2, 4, 8 and 16 blocks
            (csrc/smemprobe.cu), bisected (a size fits only if the launch is
            accepted and the result is bit for bit x * 2.0), with the
-           cluster occupancy the card reports.
+           cluster occupancy the card reports;
+16. mesh  the main path decomposed over ranks (icebin_tpu_torch.parallel,
+           coupler/sharded.py) at config #3's full width, at world size 1
+           over NCCL and world size 2 over gloo with both ranks on cuda:0
+           (gloo's send/recv staged through pinned host memory), each
+           rank a process of parallel.distributed.launch with every launch
+           counter set to 0 just before its path and read just after: the
+           sharded exchange build (K3 on each rank's pairs, A-polygon
+           blocks round a send/recv ring) bit for bit phase 3's build; 6
+           mesh coupler steps with a regeneration every 3, every rank's
+           ledger the same, the transport identity < 1e-10 every step, H
+           and fE_out within the JAX package's mesh tolerances
+           (tests/test_mesh_coupler.py:111-116) of the single-device
+           coupler on the same forcing, and at world size 1 H, fE_out and
+           the ledger bit for bit its; step ms over 18 steps with the
+           mesh's timers off beside the single-device coupler's, then 6
+           steps with the timers on for halo, collective and staging ms,
+           substeps, gathers and exchanges per step; K1/K2/K3 launches per
+           rank and build ms; and parallel/dryrun.py at world size 1
+           (NCCL).
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -1617,6 +1636,201 @@ def check_clip_build(log):
               f"spills: {st}")
 
 
+# -- phase 16: the mesh -------------------------------------------------------
+
+MESH_WORLDS = ((1, "nccl"), (2, "gloo"))
+MESH_H_TOL = dict(rtol=2e-5, atol=2e-4)      # tests/test_mesh_coupler.py
+MESH_FE_TOL = dict(rtol=5e-4, atol=5e-3)     # :111-116
+MESH_STEPS = 18       # steps timed as a run takes them (the first 6 checked)
+MESH_TRACED = 6       # more steps, with the mesh's synchronised timers on
+
+
+def plain_median(ms):
+    """Median of the steps without a regeneration, the first (warm-up)
+    left out."""
+    return float(np.median([m for i, m in enumerate(ms)
+                            if i and (i + 1) % REGEN]))
+
+
+def mesh_rank(mesh, specA, specI, xg_ref, dryrun):
+    """One rank of phase 16 (run by parallel.distributed.launch): the
+    sharded build against phase 3's, then the mesh coupler's steps, each
+    path with the launch counters set to 0 just before it and read just
+    after (the coupler's after the 2 * REGEN checked steps).  Steps are
+    timed with the mesh's timers off (a device sync after each step, as
+    the single-device steps); then MESH_TRACED more with them on, which
+    synchronise around every halo and collective to split the step.  With
+    ``dryrun``, parallel/dryrun.py on this mesh."""
+    import torch
+    from icebin_tpu_torch import CouplerConfig, GCMCoupler, GCMRegridder
+    from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+    from icebin_tpu_torch.ops.clip import clip_areas_centroids
+    from icebin_tpu_torch.parallel.build import sharded_exchange_grid
+    from icebin_tpu_torch.parallel.dryrun import run_dryrun
+    dev = mesh.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    mesh.timing = False
+    out = {"device": str(dev)}
+    for k in (clip_areas_centroids, spmm_dest_ice, spmm_dest_small):
+        k.launches = 0
+    sync()
+    t = time.perf_counter()
+    xg = sharded_exchange_grid(mesh, specA, specI, subdiv=2)
+    sync()
+    out["build_ms"] = 1e3 * (time.perf_counter() - t)
+    out["build_launches"] = clip_areas_centroids.launches
+    out["build_same"] = {k: bool(np.array_equal(getattr(xg, k), xg_ref[k]))
+                         for k in xg_ref}
+
+    gr = GCMRegridder(specA, HCDEFS, device=dev)
+    gr.add_sheet("greenland", specI, exchange=xg)
+    for k in (spmm_dest_ice, spmm_dest_small):
+        k.launches = 0
+    t = time.perf_counter()
+    cp = GCMCoupler(gr, CouplerConfig(dt=DT, regen_every=REGEN), mesh=mesh)
+    out["init_ms"] = 1e3 * (time.perf_counter() - t)
+    sc = cp.sheets["greenland"]
+    steps, traced = [], []
+    for k in range(MESH_STEPS + MESH_TRACED):
+        mesh.timing = k >= MESH_STEPS
+        fE = torch.as_tensor(forcing(gr.nE, seed=k), device=dev)
+        ms0, calls0 = dict(mesh.ms), dict(mesh.calls)
+        sync()
+        t = time.perf_counter()
+        res = cp.couple({"greenland": fE})["greenland"]
+        sync()
+        ms = 1e3 * (time.perf_counter() - t)
+        if k < MESH_STEPS:
+            steps.append(ms)
+        else:
+            traced.append({"ms": ms,
+                           **{f"{key}_ms": mesh.ms[key] - ms0[key]
+                              for key in mesh.ms},
+                           **{f"{key}_calls": mesh.calls[key] - calls0[key]
+                              for key in mesh.calls}})
+        if k + 1 == 2 * REGEN:
+            out["launches"] = {c.__name__: c.launches for c in (
+                spmm_dest_ice, spmm_dest_small)}
+            out.update(rows=cp.ledger.to_rows(),
+                       H=sc.gathered_state().H.cpu().numpy(),
+                       fE_out=res["fE_out"].cpu().numpy(),
+                       finite=bool(torch.isfinite(sc.state.H).all()))
+    mesh.timing = False
+    out.update(steps=steps, traced=traced)
+    if dryrun:
+        t = time.perf_counter()
+        out["dryrun"] = run_dryrun(mesh)
+        out["dryrun"]["ms"] = 1e3 * (time.perf_counter() - t)
+    return out
+
+
+def phase_mesh(specA, specI, xg, device, step_ms):
+    """Phase 16: the mesh at world sizes 1 (NCCL) and 2 (gloo on one
+    card) against phase 3's build and the single-device coupler."""
+    import torch
+    from icebin_tpu_torch import CouplerConfig, GCMCoupler, GCMRegridder
+    from icebin_tpu_torch.parallel.distributed import launch
+    t16 = time.perf_counter()
+    gr = GCMRegridder(specA, HCDEFS, device=device)
+    gr.add_sheet("greenland", specI, exchange=xg)
+    cp = GCMCoupler(gr, CouplerConfig(dt=DT, regen_every=REGEN),
+                    device=device)
+    one = []
+    for k in range(MESH_STEPS):
+        fE = torch.as_tensor(forcing(gr.nE, seed=k), device=device)
+        res, ms = wall_ms(lambda: cp.couple({"greenland": fE})["greenland"])
+        one.append(ms)
+        if k + 1 == 2 * REGEN:
+            H1 = cp.sheets["greenland"].state.H.cpu().numpy()
+            e1 = res["fE_out"].cpu().numpy()
+            rows1 = cp.ledger.to_rows()
+    one_ms = plain_median(one)
+    xg_ref = {k: getattr(xg, k) for k in ("iA", "iI", "area", "centroid")}
+    say(f"mesh: single-device coupler on the same forcing, {MESH_STEPS} "
+        f"steps, median step {one_ms:.3f} ms (steps without regeneration, "
+        f"the first left out; phase 3's median {step_ms:.3f})")
+    out = {}
+    for n, backend in MESH_WORLDS:
+        t = time.perf_counter()
+        ranks = launch(mesh_rank, n, backend=backend, device=device.type,
+                       args=(specA, specI, xg_ref, n == 1), timeout=300.0)
+        say(f"mesh {n} x {backend}: launch of {n} rank process(es) took "
+            f"{time.perf_counter() - t:.1f} s")
+        for r, rk in enumerate(ranks):
+            tag = f"mesh {n} x {backend} rank {r} ({rk['device']})"
+            check(all(rk["build_same"].values()),
+                  f"{tag}: sharded build differs from phase 3's: "
+                  f"{rk['build_same']}")
+            check(rk["build_launches"] > 0, f"{tag}: K3 was not launched")
+            for name, c in rk["launches"].items():
+                check(c > 0, f"{tag}: kernel {name} was not launched")
+            check(rk["rows"] == ranks[0]["rows"],
+                  f"{tag}: ledger differs from rank 0's")
+            worst = max(abs(row["greenland.mass_in_E"]
+                            - row["greenland.mass_delivered_I"])
+                        / abs(row["greenland.mass_in_E"])
+                        for row in rk["rows"])
+            check(worst < TRANSPORT_TOL, f"{tag}: transport {worst:.3e}")
+            check(rk["finite"], f"{tag}: non-finite ice state")
+            dH = np.abs(rk["H"] - H1)
+            okH = bool(np.all(dH <= MESH_H_TOL["atol"]
+                              + MESH_H_TOL["rtol"] * np.abs(H1)))
+            fin = np.isfinite(e1)
+            check(np.array_equal(np.isfinite(rk["fE_out"]), fin),
+                  f"{tag}: fE_out's finite cells differ")
+            dE = np.abs(rk["fE_out"][fin] - e1[fin])
+            okE = bool(np.all(dE <= MESH_FE_TOL["atol"]
+                              + MESH_FE_TOL["rtol"] * np.abs(e1[fin])))
+            say(f"{tag}: sharded build {rk['build_ms']:.1f} ms bit for bit "
+                f"phase 3's ({rk['build_launches']} K3 launches); coupler "
+                f"init {rk['init_ms']:.1f} ms; launches in "
+                f"{2 * REGEN} steps {rk['launches']}; max |H - single| "
+                f"{dH.max():.3e} m, max |fE_out - single| {dE.max():.3e}; "
+                f"transport {worst:.3e}")
+            check(okH, f"{tag}: H outside {MESH_H_TOL} of single-device")
+            check(okE, f"{tag}: fE_out outside {MESH_FE_TOL}")
+            if n == 1:
+                check(np.array_equal(rk["H"], H1)
+                      and np.array_equal(rk["fE_out"], e1, equal_nan=True)
+                      and rk["rows"] == rows1,
+                      f"{tag}: H, fE_out or the ledger not bit for bit "
+                      f"the single-device coupler's")
+                say(f"{tag}: H, fE_out and the ledger bit for bit the "
+                    f"single-device coupler's")
+            say(f"{tag}: step ms, timers off: "
+                + ", ".join(f"{m:.2f}" for m in rk["steps"]))
+            for i, st in enumerate(rk["traced"]):
+                k = MESH_STEPS + i + 1
+                say(f"{tag} step {k} (timers on): {st['ms']:.2f} ms, halo "
+                    f"{st['halo_ms']:.2f} ms, collectives {st['coll_ms']:.2f}"
+                    f" ms, host staging {st['stage_ms']:.2f} ms, substeps "
+                    f"{st['max_calls']}, gathers {st['gather_calls']}, "
+                    f"exchanges {st['exchange_calls']}"
+                    + (" (regeneration)" if k % REGEN == 0 else ""))
+            if "dryrun" in rk:
+                say(f"{tag}: parallel/dryrun.py {rk['dryrun']}")
+        rk = ranks[0]
+        traced = [st for i, st in enumerate(rk["traced"])
+                  if (MESH_STEPS + i + 1) % REGEN]
+        prod = plain_median(rk["steps"])
+        out[f"{n}x{backend}"] = prod
+        say(f"mesh {n} x {backend}: median step {prod:.3f} ms with the "
+            f"timers off (rank 0, {MESH_STEPS} steps, without regeneration, "
+            f"the first left out) vs single-device {one_ms:.3f} ms; with "
+            f"the timers on {np.median([st['ms'] for st in traced]):.3f} ms"
+            f", of which halo "
+            f"{np.median([st['halo_ms'] for st in traced]):.3f}, "
+            f"collectives {np.median([st['coll_ms'] for st in traced]):.3f}"
+            f", staging {np.median([st['stage_ms'] for st in traced]):.3f}"
+            f" ms (medians of {len(traced)} steps)")
+    say(f"mesh: phase 16 took {time.perf_counter() - t16:.1f} s")
+    return out
+
+
 def main():
     global CARD
     import torch
@@ -1665,6 +1879,8 @@ def main():
     t15 = time.perf_counter()
     smemfold = phase_smemfold(device)
     say(f"smemfold: phase 15 took {time.perf_counter() - t15:.1f} s")
+    phase_mesh(specA, specI, cp.gr.sheets["greenland"].exchange, device,
+               step_ms)
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]

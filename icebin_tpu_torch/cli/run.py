@@ -8,22 +8,29 @@ output lines, checkpoint files and forcing (``default_rng(0)``).
 
     python -m icebin_tpu_torch.cli.run run.json [--forcing synthetic|zero]
         [--ice sia|dismal] [--resume ck.npz] [--fused]
-        [--device cuda|cpu]
+        [--mesh N [--backend nccl|gloo]] [--device cuda|cpu]
 
 Everything runs on ``--device`` (default cuda, and then a GPU is required;
 cpu runs the kernels' plain versions), exchange grids that the config does
-not cache included.  ``--mesh`` is refused: the port has no device mesh
-yet.
+not cache included.  ``--mesh N`` decomposes every ice sheet over N ranks
+(``GCMCoupler(..., mesh=...)``, the SIA model only): the command starts N
+rank processes (``parallel.distributed.launch``) and prints rank 0's
+report, or, started by torchrun, runs as one of its ranks.  The backend
+defaults to nccl on cuda (a card a rank) and gloo on the CPU; gloo on cuda
+lets ranks share a card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import sys
 
 import numpy as np
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="icebin-run", description=__doc__)
     ap.add_argument("config")
     ap.add_argument("--forcing", default="synthetic",
@@ -37,13 +44,73 @@ def main(argv=None) -> int:
                          "(checkpoint cadence then follows regen windows; "
                          "DISMAL runs stepwise, as in the reference)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="not supported by the port (no device mesh yet)")
+                    help="decompose each ice sheet over N ranks (sharded "
+                         "applies + halo-exchanged ice step)")
+    ap.add_argument("--backend", choices=["nccl", "gloo"],
+                    help="process-group backend of --mesh (default nccl on "
+                         "cuda, gloo on cpu)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh: the port has no device mesh yet (distribution is "
-                 "ROADMAP Queue 1 #4); run without --mesh")
+    return ap
 
+
+def main(argv=None) -> int:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.mesh and args.ice != "sia":
+        ap.error("--mesh runs the SIA model only")
+
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device: pass --device cpu to run the plain "
+                 "versions on the CPU")
+    if not args.mesh:
+        return _run(args, None)
+    import torch.distributed as dist
+
+    from icebin_tpu_torch.parallel.distributed import init_multihost, launch
+    from icebin_tpu_torch.parallel.mesh import make_mesh, rank_device
+    backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
+    try:
+        rank_device(backend, device, args.mesh, 0)
+    except ValueError as e:
+        ap.error(f"--mesh {args.mesh}: {e}")
+    if "RANK" in os.environ or dist.is_initialized():   # torchrun's rank
+        if not dist.is_initialized():
+            init_multihost(backend=backend)
+        mesh = make_mesh(args.mesh, backend=backend, device=device)
+        if mesh.device.type == "cuda":
+            torch.cuda.set_device(mesh.device)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = _run(args, mesh)
+        if mesh.rank == 0:            # every rank books the same report
+            sys.stdout.write(out.getvalue())
+        return rc
+    if device.type == "cuda":
+        from icebin_tpu_torch.ops import _build
+        _build.library()          # once here, not in every rank
+    outs = launch(_rank, args.mesh, backend=backend, device=device,
+                  args=(argv if argv is not None else sys.argv[1:],),
+                  timeout=None)
+    sys.stdout.write(outs[0])
+    return 0
+
+
+def _rank(mesh, argv) -> str:
+    """One rank of ``run --mesh``: the run on ``mesh``; returns what it
+    printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _run(_parser().parse_args(argv), mesh)
+    if rc:
+        raise SystemExit(rc)
+    return buf.getvalue()
+
+
+def _run(args, mesh) -> int:
+    """The run itself, on one device or on this rank of ``mesh``."""
     import torch
 
     from icebin_tpu_torch.coupler.checkpoint import (load_checkpoint,
@@ -54,10 +121,7 @@ def main(argv=None) -> int:
     from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
     from icebin_tpu_torch.utils.config import RunConfig
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        ap.error("no CUDA device: pass --device cpu to run the plain "
-                 "versions on the CPU")
+    device = mesh.device if mesh is not None else torch.device(args.device)
     cfg = RunConfig.from_json(args.config)
     gr = GCMRegridder(read_grid(cfg.gridA_file), hcdefs=cfg.hcdefs,
                       device=device)
@@ -69,7 +133,7 @@ def main(argv=None) -> int:
     cp = GCMCoupler(gr, CouplerConfig(
         dt=cfg.dt_seconds, regen_every=cfg.regen_every,
         min_thickness=cfg.min_thickness, params=cfg.regrid_params()),
-        device=device, writer=writer)
+        device=device, writer=writer, mesh=mesh)
     if args.ice == "dismal":
         from icebin_tpu_torch.models.dismal import DismalModel
         for sc in cp.sheets.values():

@@ -24,21 +24,30 @@ __all__ = ["save_checkpoint", "load_checkpoint"]
 
 def save_checkpoint(path: str, coupler) -> None:
     """Write ``coupler``'s state to ``path``; reading the ledger flushes the
-    rows a deferred ledger still holds on the device."""
+    rows a deferred ledger still holds on the device.  A mesh coupler
+    saves the gathered whole-lattice state (every rank calls this; rank 0
+    writes, and the others wait until the file is there), so its
+    checkpoint is a single-device one."""
     arrs = {"time": np.asarray(coupler.time),
             "ledger": np.frombuffer(
                 json.dumps(coupler.ledger.to_rows()).encode(), dtype=np.uint8)}
     for name, sc in coupler.sheets.items():
+        state = sc.gathered_state()
         for k in ("H", "bed", "t", "enth"):
-            arrs[f"{name}.{k}"] = getattr(sc.state, k).detach().cpu().numpy()
+            arrs[f"{name}.{k}"] = getattr(state, k).detach().cpu().numpy()
         arrs[f"{name}.steps_since_regen"] = np.asarray(sc.steps_since_regen)
         arrs[f"{name}.regen_elevmask"] = np.asarray(sc.regen_elevmask)
-    np.savez_compressed(path, **arrs)
+    mesh = getattr(coupler, "mesh", None)
+    if mesh is None or mesh.rank == 0:
+        np.savez_compressed(path, **arrs)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_checkpoint(path: str, coupler) -> None:
     """Restore state into an already-constructed coupler (same config) on its
-    device; matrices regenerate from the restored elevmask.  The lattice
+    device (a mesh coupler's rank takes its block); matrices regenerate from
+    the restored elevmask.  The lattice
     takes the sheet's dtype and the time f64, as the port's state holds
     them; a checkpoint without ``enth`` (written before the energy column
     existed) starts from the cold column at the sheet's ``t_init``."""
@@ -54,9 +63,9 @@ def load_checkpoint(path: str, coupler) -> None:
                                    ).to(dtype)
 
         H = get("H")
-        sc.state = IceSheetState(
+        sc.place_state(IceSheetState(
             H=H, bed=get("bed"), t=get("t", torch.float64),
             enth=(get("enth") if f"{name}.enth" in z
-                  else default_enthalpy(H, sc.ice_cfg.t_init)))
+                  else default_enthalpy(H, sc.ice_cfg.t_init))))
         sc.regen_matrices(elevmask=z[f"{name}.regen_elevmask"])
         sc.steps_since_regen = int(z[f"{name}.steps_since_regen"])

@@ -21,6 +21,12 @@ Differences from the reference:
   step, or a model marked ``jittable``; any other runs stepwise), so the
   two packages dump and checkpoint on the same steps.
 * Fields reach the writer through ``.cpu().numpy()``.
+* With a ``mesh`` (``parallel.mesh.IceMesh``) each rank runs its own
+  ``GCMCoupler`` over its y-block of every sheet (``coupler.sharded``):
+  the applies dispatch to the sharded views, sums over the ice lattice add
+  the ranks' partials in rank order (``_across``; sums over the replicated
+  A and E spaces are not reduced), and the writer gathers ice fields and
+  writes from rank 0.
 """
 from __future__ import annotations
 
@@ -119,7 +125,29 @@ class IceSheetCoupler:
         #: every regeneration (host f64)
         self.held_E: Optional[np.ndarray] = None
         self.held_default = 0.0
+        #: (ny, nx) bool mask of the physical lattice cells, or None when
+        #: all are; a ragged mesh decomposition's pad rows are not
+        self._active_mask: Optional[torch.Tensor] = None
         self.regen_matrices()
+
+    def place_state(self, state: IceSheetState) -> None:
+        """Take ``state`` (the whole lattice) as this coupler's; a mesh
+        coupler keeps its rank's block."""
+        self.state = state
+
+    def gathered_state(self) -> IceSheetState:
+        """The whole lattice's state (a mesh coupler gathers its ranks')."""
+        return self.state
+
+    def gather_ice(self, f: torch.Tensor) -> torch.Tensor:
+        """A field over this coupler's ice cells as the whole lattice's."""
+        return f
+
+    def _across(self, *partials):
+        """Totals over the ice lattice from this coupler's partial sums:
+        the sums themselves on one device; a mesh coupler adds its ranks'
+        in rank order."""
+        return partials
 
     # -- matrix lifecycle --------------------------------------------------
 
@@ -171,16 +199,25 @@ class IceSheetCoupler:
         """Apply matrix ``name`` to a device field, with the f64 mass repair
         (unless a unit conversion is fused)."""
         return self._apply_mat(self.mat(name), f, var_factor=var_factor,
-                               var_offset=var_offset)
+                               var_offset=var_offset,
+                               lattice=name not in ("AvE", "EvA"))
 
-    def _apply_mat(self, bm, f, var_factor=None, var_offset=None):
+    def _apply_mat(self, bm, f, var_factor=None, var_offset=None,
+                   lattice=True):
+        """``bm`` applied to ``f`` with the repair; ``lattice``: the view's
+        ice side is the ice lattice (all but AvE/EvA), so the repair's sums
+        over that side are totals across ranks (``_across``)."""
         out = apply_view(bm, f, scale=True, var_factor=var_factor,
                          var_offset=var_offset, fill=math.nan)
         if self.cfg.repair and var_factor is None and var_offset is None:
             m_src = weighted_mass(f, bm.Mw).reshape(-1)
+            if lattice and not bm.transposed:       # the source is ice
+                (m_src,) = self._across(m_src)
             out2 = torch.where(torch.isfinite(out), out, 0.0)
             out = repair_mass(out2[None] if out.dim() == 1 else out2,
-                              bm.wM, m_src)
+                              bm.wM, m_src,
+                              totals=(self._across if lattice
+                                      and bm.transposed else None))
             out = out[0] if f.dim() == 1 else out
         return out
 
@@ -235,7 +272,7 @@ class IceSheetCoupler:
             src_conv = fE_in[idx] * fac[idx, None]
             m_src = weighted_mass(src_conv, ive.Mw)
             sub = torch.where(torch.isfinite(fI[idx]), fI[idx], 0.0)
-            fI64 = repair_mass(sub, ive.wM, m_src)
+            fI64 = repair_mass(sub, ive.wM, m_src, totals=self._across)
             fI[idx] = torch.where(torch.isfinite(fI[idx]),
                                   fI64.to(fI.dtype), fI[idx])
 
@@ -258,8 +295,14 @@ class IceSheetCoupler:
         rain_enthI = row("rain_enth") * mfac
         enthI = sum(row(n) for n in self.ENERGY_IN_FIELDS) * mfac
 
+        mask = self._active_mask
+
         def _sum(x):
-            return x.reshape(-1).to(_F64).sum()
+            """This rank's f64 sum of a lattice field, pad rows out."""
+            x = x.reshape(-1)
+            if mask is not None:
+                x = torch.where(mask.reshape(-1), x, 0.0)
+            return x.to(_F64).sum()
 
         def e_src(name):
             k = cin.index(name)
@@ -268,32 +311,46 @@ class IceSheetCoupler:
         m_in = e_src("smb_mass") + e_src("rain_mass")
         e_in = (sum(e_src(n) for n in self.ENERGY_IN_FIELDS)
                 + e_src("rain_enth"))
-        mass0 = _sum(state.H) * self.cell_area * RHO_ICE
-        e_store0 = _sum(state.enth) * self.cell_area
         if fI64 is not None:
             def dlv(name):
-                return weighted_mass(fI64[rep.index(name)], ive.wM) * cfg.dt
+                return weighted_mass(fI64[rep.index(name)], ive.wM)
         else:
             def dlv(name):
-                return weighted_mass(row(name), ive.wM) * cfg.dt
-        m_delivered = dlv("smb_mass") + dlv("rain_mass")
-        m_rain = dlv("rain_mass")
-        e_rain = dlv("rain_enth")
-        e_delivered = sum(dlv(n) for n in self.ENERGY_IN_FIELDS) + e_rain
+                return weighted_mass(row(name), ive.wM)
+        # the ice-lattice totals before the step, in one cross-rank sum on
+        # a mesh (sums over E above are of replicated fields: not reduced)
+        dl_names = ("smb_mass", "rain_mass", "rain_enth",
+                    *self.ENERGY_IN_FIELDS)
+        (mass0, e_store0, s_smb, s_rain, s_enth,
+         *dls) = self._across(_sum(state.H), _sum(state.enth), _sum(smbI),
+                              _sum(rainI), _sum(enthI),
+                              *(dlv(n) for n in dl_names))
+        mass0 = mass0 * self.cell_area * RHO_ICE
+        e_store0 = e_store0 * self.cell_area
+        dl = {n: v * cfg.dt for n, v in zip(dl_names, dls)}
+        m_delivered = dl["smb_mass"] + dl["rain_mass"]
+        m_rain = dl["rain_mass"]
+        e_rain = dl["rain_enth"]
+        e_delivered = sum(dl[n] for n in self.ENERGY_IN_FIELDS) + e_rain
 
         # 2. ice model step
         new_state, fx = self.ice_step(self.ice_cfg, state, smbI, tsI,
                                       cfg.dt, enthI)
-        mass1 = _sum(new_state.H) * self.cell_area * RHO_ICE
-        e_store1 = _sum(new_state.enth) * self.cell_area
         ad = self.cell_area * cfg.dt
         shed = (fx.runoff + fx.basal_melt + fx.calving).to(_F64)
-        m_returned = shed.sum() * ad + m_rain
-        m_clamp = fx.mass_clamp.to(_F64).sum() * ad
         e_shed = (fx.enth_runoff + fx.enth_basal + fx.enth_calving).to(_F64)
-        e_returned = e_shed.sum() * ad + e_rain
-        e_clamp = fx.enth_clamp.to(_F64).sum() * ad
-        e_pdd = fx.latent_pdd.to(_F64).sum() * ad
+        (mass1, e_store1, m_shed, m_clamp, e_shed, e_clamp,
+         e_pdd) = self._across(
+            _sum(new_state.H), _sum(new_state.enth), shed.sum(),
+            fx.mass_clamp.to(_F64).sum(), e_shed.sum(),
+            fx.enth_clamp.to(_F64).sum(), fx.latent_pdd.to(_F64).sum())
+        mass1 = mass1 * self.cell_area * RHO_ICE
+        e_store1 = e_store1 * self.cell_area
+        m_returned = m_shed * ad + m_rain
+        m_clamp = m_clamp * ad
+        e_returned = e_shed * ad + e_rain
+        e_clamp = e_clamp * ad
+        e_pdd = e_pdd * ad
 
         # 3. harvest I -> E/A (flux rows back to the matrix measure)
         inv = torch.where(wMi > 0,
@@ -304,8 +361,8 @@ class IceSheetCoupler:
         fA_out = self._apply_mat(avi, outI)
 
         # residual rows: defined so the ledger identities hold exactly
-        m_del_f32 = (_sum(smbI) + _sum(rainI)) * ad
-        e_del_f32 = _sum(enthI) * ad
+        m_del_f32 = (s_smb + s_rain) * ad
+        e_del_f32 = s_enth * ad
         m_residual = ((mass1 - mass0 - m_del_f32 + m_returned - m_clamp)
                       + (m_del_f32 - m_delivered))
         e_residual = ((e_store1 - e_store0 - e_del_f32
@@ -373,6 +430,8 @@ class IceSheetCoupler:
         mask, runoff (+ rain), basal melt, calving, their enthalpies, and
         the column specific enthalpy."""
         icy = state.H.reshape(-1) > self.cfg.min_thickness
+        if self._active_mask is not None:       # ragged lattice pad rows
+            icy = icy & self._active_mask.reshape(-1)
         elev = torch.where(icy, state.surface.reshape(-1), torch.nan)
         thick = torch.where(icy, state.H.reshape(-1), torch.nan)
         dt_ = state.H.dtype
@@ -393,18 +452,37 @@ class IceSheetCoupler:
 
 
 class GCMCoupler:
-    """Multi-sheet coupling driver over a regridder, on ``device``."""
+    """Multi-sheet coupling driver over a regridder, on ``device``; with a
+    ``mesh`` (``parallel.mesh.IceMesh``) every sheet is decomposed over its
+    ranks (``coupler.sharded.MeshIceSheetCoupler``), on the mesh's device,
+    and each rank constructs and drives its own ``GCMCoupler``
+    (``icebin_tpu/coupler/coupler.py:648-654``)."""
 
     def __init__(self, gr: GCMRegridder, cfg: CouplerConfig = CouplerConfig(),
-                 *, device,
+                 *, device=None,
                  sheets: Optional[Dict[str, IceSheetCoupler]] = None,
-                 writer=None):
+                 writer=None, mesh=None):
         self.gr = gr
         self.cfg = cfg
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        if device is None:
+            raise TypeError("GCMCoupler needs a device (or a mesh)")
         self.device = torch.device(device)
+        self.mesh = mesh
         if sheets is None:
-            sheets = {name: IceSheetCoupler(gr, name, cfg, device=device)
-                      for name in gr.sheets}
+            if mesh is not None:
+                from icebin_tpu_torch.coupler.sharded import (
+                    MeshIceSheetCoupler)
+                sheets = {name: MeshIceSheetCoupler(gr, name, cfg, mesh)
+                          for name in gr.sheets}
+            else:
+                sheets = {name: IceSheetCoupler(gr, name, cfg,
+                                                device=device)
+                          for name in gr.sheets}
         self.sheets = sheets
         self.ledger = Ledger()
         #: optional ``CouplerWriter`` for per-step field dumps
@@ -413,15 +491,18 @@ class GCMCoupler:
 
     def _dump(self, fE_in: Dict[str, torch.Tensor], results) -> None:
         """One writer dump of every sheet's forcing and outputs, with the
-        latest ledger row (the reference's fields and names)."""
+        latest ledger row (the reference's fields and names); on a mesh
+        every rank gathers the ice fields and rank 0 writes."""
         fields = {}
         for name, r in results.items():
             fields[f"{name}.fE_in"] = fE_in[name]
-            for key in ("fI", "fE_out", "fA_out"):
+            fields[f"{name}.fI"] = self.sheets[name].gather_ice(r["fI"])
+            for key in ("fE_out", "fA_out"):
                 fields[f"{name}.{key}"] = r[key]
-        self.writer.dump(self.time, {k: v.detach().cpu().numpy()
-                                     for k, v in fields.items()},
-                         self.ledger.to_rows()[-1])
+        if self.mesh is None or self.mesh.rank == 0:
+            self.writer.dump(self.time, {k: v.detach().cpu().numpy()
+                                         for k, v in fields.items()},
+                             self.ledger.to_rows()[-1])
 
     def couple(self, gcm_ovalsE: Dict[str, torch.Tensor]):
         """One coupling step for every sheet; gcm_ovalsE maps sheet name ->

@@ -24,15 +24,21 @@ def weighted_mass(f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def repair_mass(out: torch.Tensor, wM: torch.Tensor,
-                m_src: torch.Tensor) -> torch.Tensor:
+                m_src: torch.Tensor, totals=None) -> torch.Tensor:
     """Additively correct ``out`` ((nvar, nrow) destination means) so that
     sum(out * wM) == m_src ((nvar,)) in f64.  The correction is uniform per
     unit weight; zero-weight and non-finite cells are untouched.  Returns
-    f64: the ledger must be fed from this array, not from a downcast."""
+    f64: the ledger must be fed from this array, not from a downcast.
+
+    ``totals``, where the destination rows are one rank's part of a
+    decomposed space, maps this rank's partial sums (m_dst, wtot) to the
+    whole space's (``IceMesh.sum_ranks``)."""
     out64 = out.to(_F64)
     w64 = wM.to(_F64)
     m_dst = weighted_mass(out64, w64)
     wtot = w64.sum()
+    if totals is not None:
+        m_dst, wtot = totals(m_dst, wtot)
     corr = (m_src.to(_F64) - m_dst) / torch.where(wtot > 0, wtot, 1.0)
     fixed = out64 + corr[:, None]
     return torch.where((w64 > 0)[None, :] & torch.isfinite(out64), fixed,

@@ -37,7 +37,9 @@
 // nonzeros k = a_s + g + j*(32/G), j = 0, 1, ... in order from 0.0; the
 // slice total adds the groups' partials in order g = 0, 1, ...; the row
 // total adds the slice totals in order s = 0, 1, ...; then times winv[r]
-// (f64) and one rounding.  ops/apply.py:spmm_dest_small_ref follows it.
+// (f64) and one rounding (spmm_dest_small_f64 keeps the f64 total: a mesh
+// rank's partial, rounded only after the cross-rank sum).
+// ops/apply.py:spmm_dest_small_ref follows it.
 //
 // dest-ice (K1).  Rows are many and short (IvE: <= 8 nonzeros at
 // Greenland, <= 74 at Antarctica, 61% of Antarctica's 1,254,400 rows
@@ -58,6 +60,8 @@
 // stage-1 thread-per-output kernel's, signed zeros included.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -102,16 +106,19 @@ __device__ __forceinline__ int group_width(int n) {
 // The empty rows' zeros: block b >= nlive stores the VW-element vectors
 // (b - nlive) * blockDim.x + threadIdx.x of the (nrows, nv) output that lie
 // in empty rows (nv % VW == 0, so a vector lies in one row).
-template <int VW>
+template <int VW, typename OutT>
 __device__ __forceinline__ void zero_empty(const int* __restrict__ rowptr,
-                                           float* __restrict__ out,
+                                           OutT* __restrict__ out,
                                            int nrows, int nv, int nlive) {
   const unsigned i = (blockIdx.x - nlive) * blockDim.x + threadIdx.x;
   const unsigned e = i * VW;
   if (e >= static_cast<unsigned>(nrows) * nv) return;
   const unsigned row = e / nv;
   if (rowptr[row] != rowptr[row + 1]) return;
-  if constexpr (VW == 4)
+  if constexpr (!std::is_same_v<OutT, float>) {
+#pragma unroll
+    for (int k = 0; k < VW; ++k) out[e + k] = OutT(0);
+  } else if constexpr (VW == 4)
     *reinterpret_cast<float4*>(out + e) = make_float4(0.f, 0.f, 0.f, 0.f);
   else if constexpr (VW == 2)
     *reinterpret_cast<float2*>(out + e) = make_float2(0.f, 0.f);
@@ -119,19 +126,19 @@ __device__ __forceinline__ void zero_empty(const int* __restrict__ rowptr,
     out[e] = 0.0f;
 }
 
-template <int VW, int U>
+template <int VW, int U, typename OutT>
 __global__ void dest_small_kernel(const int* __restrict__ rowptr,
                                   const int* __restrict__ cols,
                                   const float* __restrict__ vals,
                                   const float* __restrict__ winv,
                                   const float* __restrict__ x,
-                                  float* __restrict__ out,
+                                  OutT* __restrict__ out,
                                   int nrows, int nv, int scale,
                                   const int* __restrict__ live, int nlive,
                                   int aligned) {
   extern __shared__ double part[];    // [warps][32 * VW] lane partials
   if (static_cast<int>(blockIdx.x) >= nlive) {
-    zero_empty<VW>(rowptr, out, nrows, nv, nlive);
+    zero_empty<VW, OutT>(rowptr, out, nrows, nv, nlive);
     return;
   }
   const int nw = blockDim.x / kWarp;
@@ -202,7 +209,7 @@ __global__ void dest_small_kernel(const int* __restrict__ rowptr,
     for (int v = threadIdx.x; v < pw; v += blockDim.x) {
       double t = part[v];
       for (int w = 1; w < nw; ++w) t += part[w * (kWarp * VW) + v];
-      out[static_cast<size_t>(row) * nv + f0 + v] = static_cast<float>(t * s);
+      out[static_cast<size_t>(row) * nv + f0 + v] = static_cast<OutT>(t * s);
     }
     __syncthreads();                 // the next pass reuses the partials
   }
@@ -275,16 +282,16 @@ dest_ice_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
   }
 }
 
-template <int VW>
+template <int VW, typename OutT>
 cudaError_t launch_small(int unroll, dim3 grid, dim3 block, size_t smem,
                          cudaStream_t st, const int* rowptr, const int* cols,
                          const float* vals, const float* winv, const float* x,
-                         float* out, int nrows, int nv, int scale,
+                         OutT* out, int nrows, int nv, int scale,
                          const int* live, int nlive, int aligned) {
   switch (unroll) {
 #define ICEBIN_SMALL(U)                                                      \
     case U:                                                                  \
-      dest_small_kernel<VW, U><<<grid, block, smem, st>>>(                   \
+      dest_small_kernel<VW, U, OutT><<<grid, block, smem, st>>>(             \
           rowptr, cols, vals, winv, x, out, nrows, nv, scale, live, nlive,   \
           aligned);                                                          \
       return cudaSuccess;
@@ -342,22 +349,13 @@ bool aligned_to(const void* p, size_t bytes) {
   return reinterpret_cast<size_t>(p) % bytes == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each entry point launches on the caller's stream, does not synchronise,
-// and returns cudaGetLastError() so a refused launch is reported (or
-// cudaErrorInvalidValue, before any launch, for a geometry it has no
-// instance for).
-
-// dest-small: ``live`` holds the ``nlive`` non-empty rows (longest first);
-// ``warps`` (1..32) a row block holds, ``unroll`` (1, 2, 4) source loads a
-// lane keeps in flight.  nrows * nv must be below 2**31.
-int spmm_dest_small(const void* rowptr, const void* cols, const void* vals,
-                    const void* winv, const void* x, void* out, int nrows,
-                    int nv, int scale, const void* live, int nlive,
-                    int warps, int unroll, void* stream) {
+// dest-small with OutT outputs (float: rounded once; double: the f64 sums
+// themselves, as a mesh rank's partials are kept for the cross-rank sum)
+template <typename OutT>
+int dest_small(const void* rowptr, const void* cols, const void* vals,
+               const void* winv, const void* x, void* out, int nrows, int nv,
+               int scale, const void* live, int nlive, int warps, int unroll,
+               void* stream) {
   if (warps < 1 || warps > kMaxWarps || nlive < 0 || nlive > nrows
       || static_cast<long long>(nrows) * nv >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -376,21 +374,52 @@ int spmm_dest_small(const void* rowptr, const void* cols, const void* vals,
     const auto* vl = static_cast<const float*>(vals);
     const auto* wi = static_cast<const float*>(winv);
     const auto* xs = static_cast<const float*>(x);
-    auto* o = static_cast<float*>(out);
+    auto* o = static_cast<OutT*>(out);
     const auto* lv = static_cast<const int*>(live);
     cudaError_t e;
     if (vw == 4)
-      e = launch_small<4>(unroll, grid, threads, smem, st, rp, cl, vl, wi, xs,
-                          o, nrows, nv, scale, lv, nlive, al);
+      e = launch_small<4, OutT>(unroll, grid, threads, smem, st, rp, cl, vl,
+                                wi, xs, o, nrows, nv, scale, lv, nlive, al);
     else if (vw == 2)
-      e = launch_small<2>(unroll, grid, threads, smem, st, rp, cl, vl, wi, xs,
-                          o, nrows, nv, scale, lv, nlive, al);
+      e = launch_small<2, OutT>(unroll, grid, threads, smem, st, rp, cl, vl,
+                                wi, xs, o, nrows, nv, scale, lv, nlive, al);
     else
-      e = launch_small<1>(unroll, grid, threads, smem, st, rp, cl, vl, wi, xs,
-                          o, nrows, nv, scale, lv, nlive, al);
+      e = launch_small<1, OutT>(unroll, grid, threads, smem, st, rp, cl, vl,
+                                wi, xs, o, nrows, nv, scale, lv, nlive, al);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches on the caller's stream, does not synchronise,
+// and returns cudaGetLastError() so a refused launch is reported (or
+// cudaErrorInvalidValue, before any launch, for a geometry it has no
+// instance for).
+
+// dest-small: ``live`` holds the ``nlive`` non-empty rows (longest first);
+// ``warps`` (1..32) a row block holds, ``unroll`` (1, 2, 4) source loads a
+// lane keeps in flight.  nrows * nv must be below 2**31.  ``out`` is f32
+// (nrows, nv); spmm_dest_small_f64 writes the same sums to f64 ``out``
+// without the rounding.
+int spmm_dest_small(const void* rowptr, const void* cols, const void* vals,
+                    const void* winv, const void* x, void* out, int nrows,
+                    int nv, int scale, const void* live, int nlive,
+                    int warps, int unroll, void* stream) {
+  return dest_small<float>(rowptr, cols, vals, winv, x, out, nrows, nv, scale,
+                           live, nlive, warps, unroll, stream);
+}
+
+int spmm_dest_small_f64(const void* rowptr, const void* cols,
+                        const void* vals, const void* winv, const void* x,
+                        void* out, int nrows, int nv, int scale,
+                        const void* live, int nlive, int warps, int unroll,
+                        void* stream) {
+  return dest_small<double>(rowptr, cols, vals, winv, x, out, nrows, nv,
+                            scale, live, nlive, warps, unroll, stream);
 }
 
 // dest-ice: ``fields`` 0 takes x as (nsrc, nv) and writes (nrows, nv); 1

@@ -25,7 +25,8 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = ["IceSheetConfig", "IceSheetState", "IceFluxes", "init_state",
-           "default_enthalpy", "step", "step_coupled", "ablation_ghosted",
+           "default_enthalpy", "step", "step_coupled", "advance",
+           "ablation_ghosted",
            "sia_flux_div_ghosted", "sia_flux_div_energy_ghosted",
            "apply_ablation_energy", "RHO_ICE", "GRAVITY", "L_FUSION",
            "C_ICE", "T_MELT"]
@@ -268,13 +269,39 @@ def step_coupled(cfg: IceSheetConfig, state: IceSheetState, smb_flux,
     or None to skip ablation; enth_flux: net column energy input [W m-2],
     or None.  Returns (state, IceFluxes) whose mass and energy totals
     exactly match the state change net of dynamics."""
+    return advance(cfg, state, smb_flux, tsurf, dt, enth_flux)
+
+
+def advance(cfg: IceSheetConfig, state: IceSheetState, smb_flux, tsurf,
+            dt: float, enth_flux=None, *, ghost=_pad, global_max=None,
+            rows_real=None):
+    """``step_coupled`` on a lattice block: the CFL substep loop with its
+    ghost layer from ``ghost`` (default: edge-replicated, the whole
+    lattice), the CFL diffusivity max reduced by ``global_max`` (default:
+    none) and, when ``rows_real`` is given, only the block's first
+    ``rows_real`` rows physical: the trailing pad rows are re-copied from
+    the last real row after every substep (zero flux across the real/pad
+    face) and kept out of the books.  The mesh step
+    (``parallel.coupled.make_sharded_ice_step``) passes a halo exchange, a
+    max over ranks and its ragged rows; the block's shape is the state's."""
     dt_ = state.H.dtype
-    shape = (cfg.ny, cfg.nx)
+    shape = tuple(state.H.shape)
     smb = (smb_flux.reshape(shape) / RHO_ICE).to(dt_)   # m/s ice equivalent
     ts = None if tsurf is None else tsurf.reshape(shape).to(dt_)
     ef = None if enth_flux is None else enth_flux.reshape(shape).to(dt_)
-    bedg = _pad(state.bed)
+    bedg = ghost(state.bed)
     h_min = min(cfg.dx, cfg.dy)
+    live = None
+    if rows_real is not None and rows_real < shape[0]:
+        live = (torch.arange(shape[0], device=state.H.device)[:, None]
+                < rows_real).expand(shape)
+        last = max(rows_real - 1, 0)
+
+        def fix_pad(a):
+            return torch.where(live, a, a[last][None, :])
+
+    def real(a):
+        return a if live is None else torch.where(live, a, 0.0)
 
     H, U = state.H, state.enth
     t_done = torch.zeros((), dtype=dt_, device=H.device)
@@ -283,10 +310,12 @@ def step_coupled(cfg: IceSheetConfig, state: IceSheetState, smb_flux,
     eclamp_s = torch.zeros((), dtype=dt_, device=H.device)
     it = 0
     while it < cfg.n_substeps_max and bool(t_done < dt):
-        Hg = _pad(H)
+        Hg = ghost(H)
         sg = bedg + Hg
-        div, divE, Dmax = sia_flux_div_energy_ghosted(Hg, sg, _pad(U),
+        div, divE, Dmax = sia_flux_div_energy_ghosted(Hg, sg, ghost(U),
                                                       cfg.dx, cfg.dy)
+        if global_max is not None:
+            Dmax = global_max(Dmax)
         # diffusive CFL: dt < min(dx,dy)^2 / (4 Dmax)
         cfl = torch.where(Dmax > 0, 0.25 * h_min ** 2 / (Dmax + 1e-30),
                           cfg.dt_max)
@@ -295,7 +324,7 @@ def step_coupled(cfg: IceSheetConfig, state: IceSheetState, smb_flux,
         # SMB per substep; the >= 0 clamp's fabricated mass is booked
         H_dyn = H + (div + smb) * dt_sub
         H_new = torch.clamp(H_dyn, min=0.0)
-        clamp_s = clamp_s + (H_new - H_dyn).sum()
+        clamp_s = clamp_s + real(H_new - H_dyn).sum()
         U_new = U + divE * dt_sub
         if ef is not None:
             U_new = U_new + ef * dt_sub
@@ -305,12 +334,14 @@ def step_coupled(cfg: IceSheetConfig, state: IceSheetState, smb_flux,
             (H_new, U_new, basal, eU_run, eU_calv,
              e_clamp, e_lat) = apply_ablation_energy(H_pre, U_new, melt,
                                                      calv)
-            cums = [c + d for c, d in zip(cums, (
+            cums = [c + real(d) for c, d in zip(cums, (
                 melt, basal, calv, eU_run, eU_calv, e_lat))]
         else:
             e_clamp = torch.where(H_new > 0, 0.0, U_new)
             U_new = torch.where(H_new > 0, U_new, 0.0)
-        eclamp_s = eclamp_s + e_clamp.sum()
+        eclamp_s = eclamp_s + real(e_clamp).sum()
+        if live is not None:
+            H_new, U_new = fix_pad(H_new), fix_pad(U_new)
         H, U, t_done = H_new, U_new, t_done + dt_sub
         it += 1
 

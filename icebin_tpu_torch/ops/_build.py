@@ -36,6 +36,8 @@ _PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "spmm_dest_small": ((_P,) * 6 + (_I,) * 3 + (_P,) + (_I,) * 3 + (_P,),
                         _I),
+    "spmm_dest_small_f64": ((_P,) * 6 + (_I,) * 3 + (_P,) + (_I,) * 3
+                            + (_P,), _I),
     "spmm_dest_ice": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
     "clip_rect": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
     "clip_poly": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),

@@ -32,6 +32,7 @@ groups (``:1323``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -48,19 +49,21 @@ WARP = 32
 
 
 def spmm_ref(csr: Csr, x: torch.Tensor, scale: bool = True,
-             fields: bool = False) -> torch.Tensor:
+             fields: bool = False,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of both kernels: x (n_src, nv) f32 -> (n_dst, nv) f32,
     ``out[r] = winv[r] * sum_k vals[k] * clean(x[cols[k]])``; with
-    ``fields`` x is (nv, n_src) and the result (nv, n_dst)."""
+    ``fields`` x is (nv, n_src) and the result (nv, n_dst); ``dtype``
+    float64 keeps the f64 sums unrounded (``spmm_dest_small``'s)."""
     if fields:
-        return spmm_ref(csr, x.t(), scale).t()
+        return spmm_ref(csr, x.t(), scale, dtype=dtype).t()
     x64 = torch.where(torch.isfinite(x), x, 0.0).to(torch.float64)
     contrib = csr.vals.to(torch.float64)[:, None] * x64[csr.cols.long()]
     out = torch.zeros((csr.n_dst, x.shape[1]), dtype=torch.float64,
                       device=x.device).index_add_(0, csr.rows(), contrib)
     if scale:
         out = out * csr.winv.to(torch.float64)[:, None]
-    return out.to(torch.float32)
+    return out.to(dtype)
 
 
 def _fold(acc, rows, slot, step, terms):
@@ -139,14 +142,15 @@ def _lanes(nv: int):
 
 
 def spmm_dest_small_ref(csr: Csr, x: torch.Tensor, scale: bool = True,
-                        warps: int | None = None) -> torch.Tensor:
+                        warps: int | None = None,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of ``spmm_dest_small`` in its own summation order, bit
     for bit the kernel's result (``csrc/spmm.cu``'s header): each live row
     of ``csr.live`` cut into ``warps`` slices (``small_slices``; by default
     ``small_geometry``'s count), lane group g of a slice summing its
     nonzeros g, g + ng, ... from 0.0 in f64 (``_lanes``' ng), the groups
     added in order, then the slices in order, times winv (f64), rounded
-    once; +0.0 on the empty rows."""
+    once (not at all for ``dtype`` float64); +0.0 on the empty rows."""
     nv = x.shape[1]
     if warps is None:
         warps = small_geometry(csr, nv)[0]
@@ -176,8 +180,8 @@ def spmm_dest_small_ref(csr: Csr, x: torch.Tensor, scale: bool = True,
         total[:, f0:f0 + pw] = t
     if scale:
         total = total * csr.winv.to(torch.float64)[live, None]
-    out = torch.zeros((csr.n_dst, nv), dtype=torch.float32, device=x.device)
-    out[live] = total.to(torch.float32)
+    out = torch.zeros((csr.n_dst, nv), dtype=dtype, device=x.device)
+    out[live] = total.to(dtype)
     return out
 
 
@@ -225,13 +229,17 @@ def on_cpu(x: torch.Tensor, what: str) -> bool:
 
 
 def _small(csr: Csr, x: torch.Tensor, scale: bool, warps: int,
-           unroll: int) -> torch.Tensor:
-    """Launch the dest-small kernel at the given geometry (uncounted)."""
+           unroll: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the dest-small kernel at the given geometry (uncounted), with
+    f32 outputs or, for ``dtype`` float64, the unrounded f64 sums."""
     if csr.n_dst * x.shape[1] >= 2 ** 31:
         raise ValueError(f"spmm_dest_small: {csr.n_dst} x {x.shape[1]} "
                          f"outputs need 64-bit indexing")
-    return _launch("spmm_dest_small", csr, x, int(scale),
-                   csr.live.data_ptr(), csr.n_live, warps, unroll)
+    f64 = _out_dtype(dtype) == torch.float64
+    out = torch.empty((csr.n_dst, x.shape[1]), dtype=dtype, device=x.device)
+    return _launch("spmm_dest_small_f64" if f64 else "spmm_dest_small", csr,
+                   x, int(scale), csr.live.data_ptr(), csr.n_live, warps,
+                   unroll, out=out)
 
 
 def _ice(csr: Csr, x: torch.Tensor, scale: bool, fields: bool, chunk: int,
@@ -247,14 +255,29 @@ def _ice(csr: Csr, x: torch.Tensor, scale: bool, fields: bool, chunk: int,
                    int(fields), chunk, min_blocks, out=out, nv=nv)
 
 
-def spmm_dest_small(csr: Csr, x: torch.Tensor,
-                    scale: bool = True) -> torch.Tensor:
+def _out_dtype(dtype: torch.dtype) -> torch.dtype:
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"spmm_dest_small writes float32 or float64, not "
+                         f"{dtype}")
+    return dtype
+
+
+def spmm_dest_small(csr: Csr, x: torch.Tensor, scale: bool = True,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """dest-small kernel (EvI/AvI): x (n_src, nv) -> (n_dst, nv); a block
-    of warps per live row, one slice of its nonzeros a warp."""
+    of warps per live row, one slice of its nonzeros a warp.  ``dtype``
+    float64 returns the f64 sums unrounded (a mesh rank's partials, rounded
+    once after the cross-rank sum).  A matrix with no live row (a mesh
+    rank whose cells are all masked) gives zeros without a launch: there
+    is no row for a block to sum."""
     _check_operands(csr, x)
+    _out_dtype(dtype)
     if on_cpu(x, "spmm_dest_small"):
-        return spmm_ref(csr, x, scale)
-    out = _small(csr, x, scale, *small_geometry(csr, x.shape[1]))
+        return spmm_ref(csr, x, scale, dtype=dtype)
+    if csr.n_live == 0:
+        return torch.zeros((csr.n_dst, x.shape[1]), dtype=dtype,
+                           device=x.device)
+    out = _small(csr, x, scale, *small_geometry(csr, x.shape[1]), dtype)
     spmm_dest_small.launches += 1
     return out
 
@@ -294,10 +317,12 @@ def _apply(csr: Csr, f: torch.Tensor, nv: int, scale: bool, spmm,
     return out[0] if single else out
 
 
-def apply_small(pack: CsrPack, f: torch.Tensor,
-                scale: bool = True) -> torch.Tensor:
-    """(nv, nice) or (nice,) -> (nv, nsmall) through the dest-small kernel."""
-    return _apply(pack.small, f, pack.nv, scale, spmm_dest_small)
+def apply_small(pack: CsrPack, f: torch.Tensor, scale: bool = True,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(nv, nice) or (nice,) -> (nv, nsmall) through the dest-small kernel,
+    f32 or (``dtype`` float64) the unrounded sums."""
+    return _apply(pack.small, f, pack.nv, scale,
+                  functools.partial(spmm_dest_small, dtype=dtype))
 
 
 def apply_ice(pack: CsrPack, f: torch.Tensor,
@@ -322,14 +347,16 @@ def apply_ice_ref(pack: CsrPack, f: torch.Tensor,
 def apply_view(vw: CsrView, f: torch.Tensor, scale: bool = True,
                var_factor=None, var_offset=None,
                fill: float = math.nan) -> torch.Tensor:
-    """Apply a view to ``f`` ((n,) or (nvar, n)); returns f32.
+    """Apply a view to ``f`` ((n,) or (nvar, n)); returns f32.  The view
+    supplies the kernel apply (``apply_core``: a ``CsrView``'s pack here,
+    a mesh rank's ``parallel.sharded_apply.ShardedView`` its K2 partials
+    summed across ranks, or K1 on its rows).
 
     ``fill`` lands on zero-weight destinations when scaling; ``var_factor``
     / ``var_offset`` ((nvar,) each) are per-field affine unit conversions
     applied after the scale."""
-    apply = apply_ice if vw.transposed else apply_small
     single = f.dim() == 1
-    out = apply(vw.pack, f[None, :] if single else f, scale=scale)
+    out = vw.apply_core(f[None, :] if single else f, scale=scale)
     if scale:
         out = torch.where(vw.wM[None, :] != 0, out, fill)
     if var_factor is not None:

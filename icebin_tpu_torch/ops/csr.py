@@ -152,6 +152,14 @@ class CsrView:
         p = self.pack
         return (p.nice, p.nsmall) if self.transposed else (p.nsmall, p.nice)
 
+    def apply_core(self, f: torch.Tensor, scale: bool = True) -> torch.Tensor:
+        """(nvar, n) through this direction's kernel (``ops.apply``'s
+        ``apply_ice`` or ``apply_small``), before ``apply_view``'s fill and
+        unit conversion."""
+        from icebin_tpu_torch.ops.apply import apply_ice, apply_small
+        return (apply_ice if self.transposed else apply_small)(
+            self.pack, f, scale=scale)
+
 
 def csr_view_pair(M, nv: int = 16, small_axis: str = "rows", *, device):
     """(forward_view, reverse_view) over one pack of ``M``: forward applies

@@ -24,7 +24,8 @@ from icebin_tpu.regrid.sparse import WeightedMatrix
 from icebin_tpu_torch.ops.apply import (apply_ice, apply_ice_ref,
                                         apply_small, apply_small_ref,
                                         apply_view, spmm_dest_ice,
-                                        spmm_dest_small, spmm_ref)
+                                        spmm_dest_small,
+                                        spmm_dest_small_ref, spmm_ref)
 from icebin_tpu_torch.ops.csr import csr_pack, csr_view_pair
 from icebin_tpu_torch.regrid.sparse import WeightedMatrix as PortMatrix
 
@@ -117,6 +118,27 @@ def test_unscaled_and_overflow_pack():
         for got, want in both_directions(M, pm, pack, 8, seed=3,
                                          scale=scale):
             assert rel_err(got, want) < TOL
+
+
+def test_dest_small_f64_sums_round_to_the_f32_apply():
+    """apply_small and the K2-order plain version with f64 outputs (a mesh
+    rank's partials) keep the sums unrounded: rounded to f32 they are the
+    f32 apply bit for bit, scaled and not; other dtypes are refused."""
+    M = to_port(synth(seed=9))
+    pack = csr_pack(M, small_axis="rows", nv=8, device=CPU)
+    f = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (11, M.shape[1])).astype(np.float32))
+    x = f[:8].t().contiguous()
+    for scale in (True, False):
+        got = apply_small(pack, f, scale, dtype=torch.float64)
+        assert got.dtype == torch.float64
+        assert torch.equal(got.float(), apply_small(pack, f, scale))
+        k2 = spmm_dest_small_ref(pack.small, x, scale, dtype=torch.float64)
+        assert k2.dtype == torch.float64
+        assert torch.equal(k2.float(),
+                           spmm_dest_small_ref(pack.small, x, scale))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        spmm_dest_small(pack.small, x, dtype=torch.float16)
 
 
 def test_apply_view_fill_and_unit_conversion():

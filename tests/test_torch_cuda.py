@@ -763,6 +763,24 @@ def test_stage2_k2_bit_for_bit_its_plain_version(cuda, nv):
     assert not same(spmm_dest_small(c, xt), kp.spmm_small_slots(c, xt, 1))
 
 
+@pytest.mark.parametrize("nv", [1, 16, 18, 64])
+def test_stage2_k2_f64_sums_bit_for_bit_its_plain_version(cuda, nv):
+    """spmm_dest_small with f64 outputs (a mesh rank's partials) bit for
+    bit spmm_dest_small_ref's f64 sums, scale on and off, one launch a
+    call; scaled and rounded to f32 they are the f32 kernel's result."""
+    for c, xt in stage2_cases(cuda, nv):
+        for scale in (True, False):
+            n0 = spmm_dest_small.launches
+            got = spmm_dest_small(c, xt, scale, dtype=torch.float64)
+            assert spmm_dest_small.launches == n0 + 1
+            assert got.dtype == torch.float64
+            want = spmm_dest_small_ref(c, xt, scale, dtype=torch.float64)
+            torch.cuda.synchronize()
+            assert same(got, want), scale
+        f32 = spmm_dest_small(c, xt, True)
+        assert same(got.mul(c.winv.double()[:, None]).float(), f32)
+
+
 @pytest.mark.parametrize("nv", [16, 20, 64])
 def test_stage2_k2_every_geometry(cuda, nv):
     """The dest-small kernel at every warps-per-row and unroll it has an
@@ -892,3 +910,111 @@ def test_smem_copy_oversize_is_refused_not_raised(cuda):
                     "shared_memory_per_block_optin", None)
     if optin:
         assert found["rows"] == optin // 1024
+
+
+# -- the mesh (icebin_tpu_torch.parallel) on the card -------------------------
+
+def mesh_toy_rank(mesh, steps):
+    """``steps`` steps of a toy coupler decomposed over ``mesh`` (a rank of
+    ``launch``): the gathered H, the last fE_out, the ledger rows and K1/K2
+    launches of this rank; then K2 on a pack whose entries all lie in rank
+    0's cells (rank 1 and up hold a matrix with no live row)."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.parallel.sharded_apply import (
+        make_sharded_apply_small, sharded_csr_from_weighted)
+    from icebin_tpu_torch.regrid.sparse import WeightedMatrix
+    gr = mesh_toy_gr(mesh.device)
+    cp = port.GCMCoupler(gr, port.CouplerConfig(regen_every=2), mesh=mesh)
+    spmm_dest_ice.launches = spmm_dest_small.launches = 0
+    out = None
+    for k in range(steps):
+        out = cp.couple({"toy": mesh_toy_forcing(gr.nE, k, mesh.device)})
+    torch.cuda.synchronize()
+    launches = (spmm_dest_ice.launches, spmm_dest_small.launches)
+    M = WeightedMatrix(rows=np.arange(8) % 3, cols=np.arange(8),
+                       vals=np.ones(8), shape=(3, 64))
+    sc = sharded_csr_from_weighted(mesh, M, nv=4)
+    x = torch.ones((4, sc.cells_per_shard), device=mesh.device)
+    n0 = spmm_dest_small.launches
+    e = make_sharded_apply_small(mesh, sc)(x)
+    torch.cuda.synchronize()
+    return {"H": cp.sheets["toy"].gathered_state().H.cpu().numpy(),
+            "fE_out": out["toy"]["fE_out"].cpu().numpy(),
+            "rows": cp.ledger.to_rows(), "launches": launches,
+            "n_live": sc.pack.small.n_live,
+            "empty_launches": spmm_dest_small.launches - n0,
+            "e": e.cpu().numpy()}
+
+
+def mesh_toy_gr(device):
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.grid import GridSpecLonLat, GridSpecXY, PlateCarree
+    s = 25e3
+    specA = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                           latb=np.linspace(30.0, 80.0, 7))
+    specI = GridSpecXY(xb=np.linspace(0.0, 40.0 * s, 41),
+                       yb=np.linspace(30.0 * s, 80.0 * s, 41),
+                       projection=PlateCarree(scale=s))
+    gr = port.GCMRegridder(specA, [0.0, 1000.0, 3000.0], device=device)
+    gr.add_sheet("toy", specI, subdiv=1)
+    return gr
+
+
+def mesh_toy_forcing(nE, k, device):
+    f = np.zeros((8, nE), np.float32)
+    f[0] = 1e-5 * np.random.default_rng(k).uniform(0.5, 1.0, nE)
+    f[4] = -10.0
+    return torch.as_tensor(f, device=device)
+
+
+@pytest.mark.parametrize("n,backend", [(1, "nccl"), (2, "gloo")])
+def test_mesh_coupler_on_the_card(cuda, n, backend):
+    """The toy coupler decomposed over 1 rank (NCCL) and over 2 gloo ranks
+    sharing cuda:0: K1 and K2 launched on every rank, the ledger the same
+    on every rank and closing < 1e-10, H and fE_out within the JAX
+    package's mesh tolerances (tests/test_mesh_coupler.py:111-116) of the
+    single-device coupler on the card, and at one rank H, fE_out and the
+    ledger bit for bit the single-device coupler's; K2 on a rank with no
+    live EvI row gives zeros without a launch, and the summed result is the
+    matrix's."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.ops import _build
+    from icebin_tpu_torch.parallel.distributed import launch
+    _build.library()
+    res = launch(mesh_toy_rank, n, backend=backend, device="cuda",
+                 args=(3,), timeout=600.0)
+    gr = mesh_toy_gr(cuda)
+    cp = port.GCMCoupler(gr, port.CouplerConfig(regen_every=2), device=cuda)
+    for k in range(3):
+        out = cp.couple({"toy": mesh_toy_forcing(gr.nE, k, cuda)})["toy"]
+    H1 = cp.sheets["toy"].state.H.cpu().numpy()
+    e1 = out["fE_out"].cpu().numpy()
+    for r in res:
+        assert all(k > 0 for k in r["launches"]), r["launches"]
+        assert r["rows"] == res[0]["rows"]
+        for row in r["rows"]:
+            assert (abs(row["toy.mass_in_E"] - row["toy.mass_delivered_I"])
+                    / abs(row["toy.mass_in_E"]) < 1e-10)
+        np.testing.assert_allclose(r["H"], H1, rtol=2e-5, atol=2e-4)
+        ok = np.isfinite(e1)
+        np.testing.assert_array_equal(np.isfinite(r["fE_out"]), ok)
+        np.testing.assert_allclose(r["fE_out"][ok], e1[ok], rtol=5e-4,
+                                   atol=5e-3)
+        np.testing.assert_array_equal(r["e"], res[0]["e"])
+        np.testing.assert_allclose(r["e"], 1.0, rtol=1e-6)
+    if n == 1:
+        np.testing.assert_array_equal(res[0]["H"], H1)
+        np.testing.assert_array_equal(res[0]["fE_out"], e1)
+        assert res[0]["rows"] == cp.ledger.to_rows()
+    assert res[0]["n_live"] == 3 and res[0]["empty_launches"] == 1
+    for r in res[1:]:
+        assert r["n_live"] == 0 and r["empty_launches"] == 0
+
+
+def test_nccl_more_ranks_than_cards_raises(cuda):
+    """NCCL takes one card a rank: more ranks than cards raise before any
+    rank starts."""
+    from icebin_tpu_torch.parallel.distributed import launch
+    with pytest.raises(ValueError, match="nccl"):
+        launch(mesh_toy_rank, torch.cuda.device_count() + 1,
+               backend="nccl", device="cuda", args=(1,))

@@ -3,7 +3,7 @@ of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
 coupler, the overlap CLI, the run CLI, ``ModelEAdapter.couple_native`` and
 a gcmce shim round trip, nor after the entry points of the dest-small,
 dest-ice, fold and capacity probes and the regrid and clip kernels' geometry
-sweeps;
+sweeps, nor in the ranks of a 2-rank gloo mesh coupler;
 chip_smoke.py imports only the port and refuses to run without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
@@ -152,7 +152,11 @@ def test_port_source_imports_nothing_of_the_reference():
             "ops/_probe.py", "tools/__init__.py", "tools/common.py", "tools/probe_k2.py",
             "tools/probe_k1.py", "ops/foldprobe.py", "ops/smemprobe.py",
             "tools/probe_fold_ops.py", "tools/probe_vmem.py",
-            "tools/sweep_clip.py"} <= names
+            "tools/sweep_clip.py", "parallel/mesh.py",
+            "parallel/distributed.py", "parallel/halo.py",
+            "parallel/sharded_apply.py", "parallel/build.py",
+            "parallel/coupled.py", "parallel/dryrun.py",
+            "coupler/sharded.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f)
                                             if m.split(".")[0] in
                                             ("icebin_tpu", "jax", "jaxlib"))
@@ -240,6 +244,45 @@ def test_probe_vmem_imports_no_jax():
     n, mods = _probe_run("probe_vmem", ("--device", "cpu"))
     assert n == 1
     assert mods == "[]", mods
+
+
+def mesh_rank(mesh):
+    """Two steps of a toy coupler decomposed over ``mesh`` (a rank of
+    ``launch``); returns the worst transport identity and the modules of
+    JAX or the reference loaded in the rank."""
+    import numpy as np
+    import torch
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.grid import GridSpecLonLat, GridSpecXY, PlateCarree
+    s = 25e3
+    specA = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                           latb=np.linspace(30.0, 80.0, 7))
+    specI = GridSpecXY(xb=np.linspace(0.0, 40.0 * s, 25),
+                       yb=np.linspace(30.0 * s, 80.0 * s, 25),
+                       projection=PlateCarree(scale=s))
+    gr = port.GCMRegridder(specA, [0.0, 1000.0, 3000.0], device=mesh.device)
+    gr.add_sheet("toy", specI, subdiv=1)
+    cp = port.GCMCoupler(gr, port.CouplerConfig(regen_every=1), mesh=mesh)
+    f = np.zeros((8, gr.nE), np.float32)
+    f[0] = 1e-5
+    f[4] = -10.0
+    for _ in range(2):
+        cp.couple({"toy": torch.as_tensor(f)})
+    worst = max(abs(r["toy.mass_in_E"] - r["toy.mass_delivered_I"])
+                / abs(r["toy.mass_in_E"]) for r in cp.ledger.to_rows())
+    return worst, sorted(k for k in sys.modules
+                         if k.split(".")[0] in ("jax", "icebin_tpu"))
+
+
+def test_mesh_ranks_import_no_jax():
+    """A 2-rank gloo mesh coupler (icebin_tpu_torch.parallel,
+    coupler/sharded.py) runs in rank processes that never import JAX nor
+    the reference package."""
+    from icebin_tpu_torch.parallel.distributed import launch
+    for worst, mods in launch(mesh_rank, 2, backend="gloo", device="cpu",
+                              timeout=240.0, nice=10):
+        assert worst < 1e-10
+        assert mods == [], mods
 
 
 def test_chip_smoke_imports_only_the_port():

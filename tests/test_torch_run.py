@@ -299,14 +299,18 @@ def test_dismal_dumps_from_device_tensors(tmp_path):
 
 def test_run_cli_refuses_mesh_and_a_missing_gpu(tmp_path, capsys,
                                                 monkeypatch):
-    """--mesh is refused (the port has no device mesh; no fallback to one
-    device), and the default --device cuda needs a card."""
+    """--mesh is refused where it cannot run as asked (no fallback to one
+    device or another backend): with the DISMAL model, which has no
+    decomposed step, and with NCCL on the CPU; and the default --device
+    cuda needs a card."""
     cfg = write_config(tmp_path)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as e:
-        port_run([cfg, "--mesh", "4", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "ROADMAP Queue 1 #4" in capsys.readouterr().err
+    for flags, why in ((["--ice", "dismal"], "SIA model only"),
+                       (["--backend", "nccl"], "nccl runs on CUDA")):
+        with pytest.raises(SystemExit) as e:
+            port_run([cfg, "--mesh", "4", "--device", "cpu"] + flags)
+        assert e.value.code == 2
+        assert why in capsys.readouterr().err
     assert not (tmp_path / "checkpoint_000002.npz").exists()
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as e:
