@@ -129,7 +129,27 @@ Phases, each of which exits non-zero on failure:
            steps with the timers on for halo, collective and staging ms,
            substeps, gathers and exchanges per step; K1/K2/K3 launches per
            rank and build ms; and parallel/dryrun.py at world size 1
-           (NCCL).
+           (NCCL);
+17. topo  the ModelE input toolchain a modeller runs before a coupled
+           Greenland run, at config #3's widths, with every launch counter
+           set to 0 just before the phase and read just after: a SeaRISE
+           file of the 304 x 544 lattice written and read back; a synthetic
+           1/4-degree TOPO base (1440 x 720) written as a GISS file,
+           converted by giss2nc (values bit for bit) and taken by the
+           make_topoo CLI onto the ModelE ocean grid O (288 x 180, nested
+           in ModelE 2x2.5: each O cell in one A cell); the O-level
+           exchange grid clipped on the card (K3) against the f64 numpy
+           builder; GCMRegridderModelE's mismatched AvI/EvI/IvA/IvE
+           (the conservation identity < 1e-12), EvI and AvI through K2 and
+           IvE and IvA through K1 at nv = 16 against their plain versions
+           and WeightedMatrix.apply in f64 (raw error < 5e-7); the
+           regridder file through the global_ec CLI (every zarray blob bit
+           for bit its matrix) and make_topoo --merge (fractions sum to 1,
+           FGICE changed only under the sheet); the coupled Greenland
+           example's twin at 5 km for 3 steps, with its plot where
+           matplotlib is installed (transport < 1e-10 every step, K1 and
+           K2 launched); a Roofline of the K2 apply.  Each stage's ms,
+           the launches and the phase's seconds.
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -1831,6 +1851,309 @@ def phase_mesh(specA, specI, xg, device, step_ms):
     return out
 
 
+# -- phase 17: the ModelE input toolchain ------------------------------------
+
+TOPO_BASE = (1440, 720)   # synthetic_z1qx1n's 1/4-degree base
+TOPO_OCEAN = (288, 180)   # ModelE's ocean grid O under the 144 x 90 A grid
+TOPO_NV = 16
+TOPO_STEPS = 3            # the example twin's coupling steps
+TOPO_RES_KM = 5.0         # config #3's lattice (the SeaRISE file, the twin)
+
+
+def quiet(main, argv):
+    """A CLI's ``main(argv)``, its printed lines kept; (rc, lines, ms)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, ms = wall_ms(lambda: main(argv))
+    return rc, buf.getvalue().strip().splitlines(), ms
+
+
+def check_mismatched(rm, device):
+    """GCMRegridderModelE's AvI/EvI/IvA/IvE: the conservation identity on
+    the host; EvI and AvI through K2, IvE and IvA through K1 at TOPO_NV
+    fields against their plain versions (one f32 ulp) and the f64
+    ``WeightedMatrix.apply`` (raw error < RAW_TOL), each timed after its
+    one launch on the path.  Returns the EvI pack's CSR and field (for
+    the Roofline) and the path's launches by kernel."""
+    import torch
+    from icebin_tpu_torch.ops.apply import (spmm_dest_ice, spmm_dest_small,
+                                            spmm_ref)
+    from icebin_tpu_torch.ops.csr import csr_pack
+    from icebin_tpu_torch.regrid.matrices import RegridParams
+    rng = np.random.default_rng(17)
+    params = RegridParams()
+    keep, path = None, {}
+    for name in ("EvI", "AvI", "IvE", "IvA"):
+        M = rm.matrix(name, params)
+        x = rng.uniform(1.0, 2.0, M.shape[1])
+        out = M.apply(x)
+        lhs = np.sum(np.where(np.isfinite(out), out, 0.0) * M.wM)
+        rel = abs(lhs - np.sum(x * M.Mw)) / abs(np.sum(x * M.Mw))
+        ice = name.startswith("I")
+        kern = spmm_dest_ice if ice else spmm_dest_small
+        pack = csr_pack(M, small_axis="cols" if ice else "rows", nv=TOPO_NV,
+                        device=device)
+        csr = pack.ice if ice else pack.small
+        f = (260.0 + 30.0 * rng.uniform(size=(M.shape[1], TOPO_NV))
+             ).astype(np.float32)
+        xt = torch.as_tensor(f, device=device)
+        n0 = kern.launches
+        got = kern(csr, xt)
+        launched = kern.launches - n0
+        path[kern.__name__] = path.get(kern.__name__, 0) + launched
+        plain = spmm_ref(csr, xt)
+        torch.cuda.synchronize()
+        ulp = torch.finfo(torch.float32).eps * plain.abs()
+        d_plain = float((got - plain).abs().max())
+        want = M.apply(f.astype(np.float64).T, fill=np.nan).T
+        live = M.wM > 0
+        g = got.cpu().numpy().astype(np.float64)
+        raw = (np.abs(g[live] - want[live]).max()
+               / np.abs(want[live]).max())
+        ms = time_ms(lambda: kern(csr, xt), 50)
+        plain_ms = time_ms(lambda: spmm_ref(csr, xt), 10)
+        say(f"topo: mismatched {name} {M.shape[0]} x {M.shape[1]}, {M.nnz} "
+            f"nnz: conservation {rel:.3e} (limit 1e-12); "
+            f"{kern.__name__} ({launched} launch) raw error vs "
+            f"WeightedMatrix.apply {raw:.3e} (limit {RAW_TOL:g}), max "
+            f"|kernel - plain| {d_plain:.3e}; {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        check(rel < 1e-12, f"mismatched {name} conservation {rel:.3e}")
+        check(launched == 1, f"mismatched {name}: {launched} launches")
+        check(bool(((got - plain).abs() <= ulp).all()),
+              f"mismatched {name}: {kern.__name__} vs plain {d_plain:.3e}")
+        check(raw < RAW_TOL, f"mismatched {name} raw error {raw:.3e}")
+        if name == "EvI":
+            keep = (csr, xt)
+    return keep, path
+
+
+def phase_topo(device, counters):
+    """Phase 17 (module docstring); every launch counter set to 0 just
+    before and read just after."""
+    import importlib.util
+    import torch
+    from scipy.io import netcdf_file
+    from icebin_tpu_torch import GCMRegridder
+    from icebin_tpu_torch.cli import giss2nc, global_ec, make_topoo
+    from icebin_tpu_torch.grid import (make_exchange_grid_host,
+                                       modele_lonlat_grid)
+    from icebin_tpu_torch.io import (read_searise, write_synthetic_searise,
+                                     write_z1qx1n)
+    from icebin_tpu_torch.io.ncio import write_gcmregridder
+    from icebin_tpu_torch.io.zarray import decode_zarray
+    from icebin_tpu_torch.grid import clip_pairs
+    from icebin_tpu_torch.ops.apply import spmm_dest_small
+    from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
+                                           clip_areas_centroids_ref,
+                                           recentre_pairs)
+    from icebin_tpu_torch.regrid.hntr import hntr_matrix, hntr_spec
+    from icebin_tpu_torch.regrid.matrices import RegridParams
+    from icebin_tpu_torch.regrid.modele import GCMRegridderModelE
+    from icebin_tpu_torch.topo.topo import (FRACTION_FIELDS,
+                                            synthetic_z1qx1n)
+    from icebin_tpu_torch.utils.profiling import Roofline, csr_apply_bytes
+
+    t_phase = time.perf_counter()
+    for k in counters:
+        k.launches = 0
+    stage = {}
+    path = dict.fromkeys((k.__name__ for k in counters), 0)
+
+    def add(before):
+        """Book the launches since ``before`` (counts by kernel) as the
+        path's."""
+        for k in counters:
+            path[k.__name__] += k.launches - before[k.__name__]
+
+    def now():
+        return {k.__name__: k.launches for k in counters}
+    dev = ["--device", str(device)]
+    specA, specG = greenland_specs(TOPO_RES_KM)
+    with tempfile.TemporaryDirectory() as d:
+        p = lambda f: os.path.join(d, f)
+
+        # 1. the SeaRISE file of config #3's lattice
+        (truth, sr), stage["searise"] = wall_ms(lambda: (
+            write_synthetic_searise(p("greenland.nc"), nx=specG.nx,
+                                    ny=specG.ny, dx=1e3 * TOPO_RES_KM),
+            read_searise(p("greenland.nc"))))
+        specI, elev = sr.spec, sr.elevmask()
+        same_lattice = (specI.shape == specG.shape
+                        and np.abs(specI.xb - specG.xb).max() < 1e-6
+                        and np.abs(specI.yb - specG.yb).max() < 1e-6
+                        and specI.projection.to_proj4()
+                        == specG.projection.to_proj4())
+        say(f"topo: SeaRISE file {specI.nx} x {specI.ny}, "
+            f"{int(np.isfinite(elev).sum())} iced cells, config #3's "
+            f"lattice {same_lattice}")
+        check(same_lattice, "the SeaRISE file is not config #3's lattice")
+        check(np.array_equal(sr.thk, truth.thk)
+              and np.array_equal(sr.usrf, truth.usrf),
+              "SeaRISE fields do not read back")
+
+        # 2. the TOPO base as a GISS file, giss2nc, make_topoo onto O
+        specO = hntr_spec(*TOPO_OCEAN)
+        AvO = hntr_matrix(specA, specO)
+        nests = bool((np.bincount(AvO.cols, minlength=specO.ncells)
+                      == 1).all())
+        check(nests, "the ocean grid does not nest in ModelE 2x2.5")
+        base, ms = wall_ms(lambda: synthetic_z1qx1n(hntr_spec(*TOPO_BASE)))
+        stage["base"] = ms
+        _, stage["write_z1qx1n"] = wall_ms(
+            lambda: write_z1qx1n(p("base.giss"), base))
+        rc, lines, stage["giss2nc"] = quiet(
+            giss2nc.main, [p("base.giss"), p("base.nc")])
+        check(rc == 0, f"giss2nc returned {rc}")
+        with netcdf_file(p("base.nc"), "r", mmap=False) as nc:
+            trip = all(np.array_equal(
+                np.array(nc.variables[k.upper()][:]).reshape(-1),
+                np.asarray(getattr(base, k), np.float32))
+                for k in FRACTION_FIELDS + ("zatmo",))
+        say(f"topo: {lines[-1]}; values round-trip bit for bit {trip}")
+        check(trip, "giss2nc did not round-trip the base")
+        rc, lines, stage["make_topoo"] = quiet(make_topoo.main, [
+            "--base", p("base.giss"), "--om", "x".join(map(str, TOPO_OCEAN)),
+            "--out", p("topoo.nc")] + dev)
+        check(rc == 0, f"make_topoo returned {rc}")
+        topoo = make_topoo.read_topo(p("topoo.nc")).check()
+        say(f"topo: {lines[-1]}; O nests in ModelE 2x2.5 {nests}")
+
+        # 3. the O-level exchange grid through K3 on the card
+        grO = GCMRegridder(specO, HCDEFS, device=device)
+        before = now()
+        _, stage["exchange O (K3)"] = wall_ms(
+            lambda: grO.add_sheet("greenland", specI, subdiv=2))
+        add(before)
+        check(path["clip_areas_centroids"] > 0,
+              "the O-level build launched no clip kernel")
+        xo, stage["exchange O (f64 host)"] = wall_ms(
+            lambda: make_exchange_grid_host(specO, specI, subdiv=2))
+        compare_exchange(grO.sheets["greenland"].exchange, xo, specI,
+                         tag="topo: O-level exchange")
+        # K3 on the O-level pairs against its plain version, timed
+        _, pairI, subj, rect = clip_pairs(specO, specI, subdiv=2)
+        pq, rq, _ = recentre_pairs(subj, rect)
+        pq, rq = (torch.as_tensor(a, device=device) for a in (pq, rq))
+        a, _ = clip_areas_centroids(pq, rq)
+        a_ref, _ = clip_areas_centroids_ref(pq, rq)
+        cell = torch.as_tensor(specI.cell_areas()[pairI], device=device)
+        err = ((a.double() - a_ref.double()).abs() / cell).max().item()
+        k3_ms = time_ms(lambda: clip_areas_centroids(pq, rq), 20)
+        k3_plain = time_ms(lambda: clip_areas_centroids_ref(pq, rq), 3)
+        k3_bound, k3_by = clip_bound(pq, rq)
+        say(f"topo: K3 on the O-level build's {pq.shape[0]} pairs: max "
+            f"|area - plain| / cell area {err:.3e} (limit 1e-5); {k3_ms:.4f} "
+            f"ms, plain {k3_plain:.4f} ms, bound {k3_bound:.4f} ms ({k3_by})")
+        check(err < 1e-5, f"O-level clip areas off the plain version {err}")
+
+        # 4. the mismatched regridder: conservation, K1 and K2
+        foceanOp = topoo.focean
+        mm, stage["GCMRegridderModelE"] = wall_ms(
+            lambda: GCMRegridderModelE(grO, specA, foceanOp,
+                                       np.round(foceanOp)))
+        rm = mm.regrid_matrices("greenland", elev)
+        (csr, xt), once = check_mismatched(rm, device)
+        for name, n in once.items():
+            path[name] += n
+        say(f"topo: sAm in [{mm.sAm.min():.4f}, {mm.sAm.max():.4f}], "
+            f"{int((mm.sAm != 1.0).sum())} A cells rescaled")
+
+        # 5. global_ec and make_topoo --merge on the regridder file
+        write_gcmregridder(p("grO.nc"), grO)
+        np.save(p("elev.npy"), elev)
+        names = ("AvI", "IvA", "EvI", "IvE", "AvE", "EvA")
+        rc, lines, stage["global_ec"] = quiet(global_ec.main, [
+            p("grO.nc"), p("ec.nc"), "--elevmask",
+            f"greenland={p('elev.npy')}"] + dev)
+        check(rc == 0, f"global_ec returned {rc}")
+        rmO = grO.regrid_matrices("greenland", elev)
+        with netcdf_file(p("ec.nc"), "r", mmap=False) as nc:
+            for name in names:
+                M = rmO.matrix(name, RegridParams(scale=True, correctA=True))
+                key = f"greenland.{name}"
+                r, c, v = decode_zarray(
+                    np.array(nc.variables[f"{key}.zarray"][:]).tobytes())
+                shape = (int(getattr(nc, f"{key}_nrow")),
+                         int(getattr(nc, f"{key}_ncol")))
+                check(shape == tuple(M.shape) and np.array_equal(r, M.rows)
+                      and np.array_equal(c, M.cols)
+                      and np.array_equal(v, M.vals),
+                      f"global_ec's {name} is not rm.matrix({name!r})")
+        say(f"topo: {lines[-1]}; every blob bit for bit its matrix")
+        rc, lines, stage["make_topoo --merge"] = quiet(make_topoo.main, [
+            "--base", p("base.giss"), "--om", "x".join(map(str, TOPO_OCEAN)),
+            "--out", p("merged.nc"), "--regridder", p("grO.nc"),
+            "--elevmask", f"greenland={p('elev.npy')}", "--merge"] + dev)
+        check(rc == 0, f"make_topoo --merge returned {rc}")
+        merged = make_topoo.read_topo(p("merged.nc"))
+        s = sum(getattr(merged, k) for k in FRACTION_FIELDS)
+        under = rmO.matrix("AvI", RegridParams()).wM > 0
+        moved = merged.fgice != topoo.fgice
+        say(f"topo: {lines[-1]}; max |sum of fractions - 1| "
+            f"{np.abs(s - 1).max():.3e}, FGICE changed in {int(moved.sum())} "
+            f"of the sheet's {int(under.sum())} O cells, outside it in "
+            f"{int((moved & ~under).sum())}")
+        check(np.abs(s - 1).max() < 1e-6, "merged fractions do not sum to 1")
+        check(moved.any() and not (moved & ~under).any(),
+              "FGICE changed outside the sheet's footprint")
+
+        # 6. the coupled Greenland example's twin
+        spec = importlib.util.spec_from_file_location(
+            "coupled_greenland_torch", os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "examples",
+                "coupled_greenland_torch.py"))
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        # the plot needs matplotlib, which a machine may not have: then
+        # the twin runs without --plot (tests/test_torch_topo.py draws it)
+        plot = importlib.util.find_spec("matplotlib") is not None
+        before = now()
+        rows, lines, stage["example"] = quiet(example.main, [
+            "--res-km", f"{TOPO_RES_KM:g}", "--steps", str(TOPO_STEPS),
+            "--out", p("demo")] + ["--plot"] * plot + dev)
+        n1, n2 = (counters[k].launches - before[counters[k].__name__]
+                  for k in (1, 2))
+        add(before)
+        worst = max(abs(r["greenland.mass_in_E"]
+                        - r["greenland.mass_delivered_I"])
+                    / abs(r["greenland.mass_in_E"]) for r in rows)
+        png = p("demo/demo.png")
+        size = os.path.getsize(png) if os.path.exists(png) else 0
+        done = [s for s in lines if s.startswith("done:")]
+        say(f"topo: example twin at {TOPO_RES_KM:g} km: {done}; transport "
+            f"{worst:.3e} (limit {TRANSPORT_TOL:g}), K1 {n1} and K2 {n2} "
+            f"launches, " + (f"plot {size} bytes" if plot else
+                             "no plot: matplotlib is not installed here"))
+        check(len(rows) == TOPO_STEPS and worst < TRANSPORT_TOL,
+              f"example transport {worst:.3e}")
+        check(n1 > 0 and n2 > 0, "the example launched no K1 or K2")
+        check(size > 0 or not plot, "the example wrote no plot")
+
+        # 7. a Roofline of the K2 apply
+        roof = Roofline()
+        nbytes = csr_apply_bytes(csr, TOPO_NV)
+        spmm_dest_small(csr, xt)
+        for _ in range(20):
+            with roof.measure("K2 EvI (mismatched)", bytes=nbytes):
+                spmm_dest_small(csr, xt)
+                torch.cuda.synchronize()
+        for line in roof.report().splitlines():
+            say(f"topo: {line}")
+
+    launches = now()
+    say(f"topo: stage wall ms " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in stage.items()))
+    say(f"topo: launches on phase 17's path {path} (the O-level build, "
+        f"each mismatched matrix once, the example twin); with the timed "
+        f"and compared runs {launches}")
+    for name, n in path.items():
+        check(n > 0, f"kernel {name} was not launched by phase 17's path")
+    say(f"topo: phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     global CARD
     import torch
@@ -1881,6 +2204,7 @@ def main():
     say(f"smemfold: phase 15 took {time.perf_counter() - t15:.1f} s")
     phase_mesh(specA, specI, cp.gr.sheets["greenland"].exchange, device,
                step_ms)
+    phase_topo(device, counters)
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]

@@ -17,12 +17,13 @@ mirrors the reference:
                kernels, stream-reduce kernel (roof), smoother
     coupler/   ledger, coupler, writer, checkpoint, units, varset, e1ve0
     models/    ice_sheet, dismal
-    grid/      proj, spec, decompose, exchange (clip through the kernels)
-    regrid/    sparse, hntr, matrices, gcmregridder
-    io/        ncio, zarray
+    grid/      proj, spec, decompose, gen, exchange (clip through the
+               kernels)
+    regrid/    sparse, hntr, matrices, gcmregridder, modele
+    io/        ncio, zarray, searise, giss
     oracle/    clip (the f64 numpy clip)
-    utils/     indexing, config (RunConfig)
-    cli/       overlap, run
+    utils/     indexing, config (RunConfig), plot, profiling
+    cli/       overlap, run, make_topoo, global_ec, giss2nc
     convert    ice state to and from the reference's arrays
 
 Every constructor takes an explicit ``device``; functions on tensors run

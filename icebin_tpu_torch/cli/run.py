@@ -13,7 +13,8 @@ output lines, checkpoint files and forcing (``default_rng(0)``).
 Everything runs on ``--device`` (default cuda, and then a GPU is required;
 cpu runs the kernels' plain versions), exchange grids that the config does
 not cache included.  ``--mesh N`` decomposes every ice sheet over N ranks
-(``GCMCoupler(..., mesh=...)``, the SIA model only): the command starts N
+(``GCMCoupler(..., mesh=...)``; the SIA model's step is halo-exchanged,
+DISMAL's holds each rank's block): the command starts N
 rank processes (``parallel.distributed.launch``) and prints rank 0's
 report, or, started by torchrun, runs as one of its ranks.  The backend
 defaults to nccl on cuda (a card a rank) and gloo on the CPU; gloo on cuda
@@ -56,8 +57,6 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.mesh and args.ice != "sia":
-        ap.error("--mesh runs the SIA model only")
 
     import torch
 
@@ -137,7 +136,7 @@ def _run(args, mesh) -> int:
     if args.ice == "dismal":
         from icebin_tpu_torch.models.dismal import DismalModel
         for sc in cp.sheets.values():
-            sc.ice_step = DismalModel().step
+            sc.ice_step = DismalModel().step_for(sc)
     if args.resume:
         load_checkpoint(args.resume, cp)
         print(f"resumed at t={cp.time:.6g}s "

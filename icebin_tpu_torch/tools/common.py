@@ -11,6 +11,8 @@ import warnings
 import numpy as np
 import torch
 
+from icebin_tpu_torch.utils.profiling import csr_apply_bytes
+
 __all__ = ["HCDEFS", "HEX_R", "PEAK_BYTES_S", "PEAK_F32_FLOP_S",
            "bound", "spmm_bound", "clip_bound", "time_once", "time_ms",
            "card_name", "same", "max_diff", "library_spmm",
@@ -69,13 +71,10 @@ def spmm_bound(csr, nv, vals=True, winv=True, reads_out=False):
     two operations per nonzero and field.  A function that does not read
     ``vals`` (one operation per nonzero and field then) or ``winv`` leaves
     them out; one that reads its output first (``reads_out``) moves it
-    twice."""
-    nnz = csr.vals.numel()
-    used = torch.unique(csr.cols).numel()
-    return bound(4 * (csr.n_dst + 1 + (2 if vals else 1) * nnz
-                      + (csr.n_dst if winv else 0))
-                 + 4 * nv * (used + (2 if reads_out else 1) * csr.n_dst),
-                 (2 if vals else 1) * nnz * nv)
+    twice.  The bytes are ``utils.profiling.csr_apply_bytes``'s."""
+    return bound(csr_apply_bytes(csr, nv, vals=vals, winv=winv,
+                                 reads_out=reads_out),
+                 (2 if vals else 1) * csr.vals.numel() * nv)
 
 
 def clip_bound(polys, other):

@@ -37,7 +37,10 @@ kernels (csrc/foldprobe.cu) and the shared-memory copies
 their plain versions bit for bit.  A two-sheet coupler on the card
 is held to its CPU run as phase 6 of chip_smoke.py holds the toy (1e-5 of
 the ice state, 1e-6 of each ledger row), and the gcmce C ABI on the card
-is bit for bit the adapter driven directly.
+is bit for bit the adapter driven directly.  The ModelE mismatched
+matrices (regrid/modele.py) through K1 and K2 agree with their plain
+versions to one f32 ulp and with the f64 WeightedMatrix.apply within the
+raw bound of 5e-7 (tests/test_accuracy_contract.py).
 """
 import ctypes
 
@@ -1018,3 +1021,56 @@ def test_nccl_more_ranks_than_cards_raises(cuda):
     with pytest.raises(ValueError, match="nccl"):
         launch(mesh_toy_rank, torch.cuda.device_count() + 1,
                backend="nccl", device="cuda", args=(1,))
+
+
+def test_mismatched_matrices_through_k1_k2_on_the_card(cuda):
+    """GCMRegridderModelE's EvI and AvI through K2 and IvE and IvA through
+    K1 (tests/test_topo_modele.py:89's ocean pair, the exchange grid built
+    on the host): one launch a call, one f32 ulp from the plain version,
+    raw error < 5e-7 against the f64 WeightedMatrix.apply."""
+    from icebin_tpu_torch import GCMRegridder
+    from icebin_tpu_torch.grid import (GridSpecLonLat, GridSpecXY,
+                                       PlateCarree, make_exchange_grid_host)
+    from icebin_tpu_torch.regrid.matrices import RegridParams
+    from icebin_tpu_torch.regrid.modele import GCMRegridderModelE
+    specA = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 9),
+                           latb=np.linspace(30.0, 70.0, 9))
+    specO = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 17),
+                           latb=np.linspace(30.0, 70.0, 17))
+    s = 25e3
+    specI = GridSpecXY(xb=np.linspace(5 * s, 35 * s, 41),
+                       yb=np.linspace(35 * s, 65 * s, 41),
+                       projection=PlateCarree(scale=s))
+    grO = GCMRegridder(specO, [0.0, 1000.0, 3000.0], device=cuda)
+    grO.add_sheet("s", specI, subdiv=1,
+                  exchange=make_exchange_grid_host(specO, specI, subdiv=1))
+    rng = np.random.default_rng(0)
+    op = np.clip(rng.uniform(-0.3, 0.6, specO.ncells), 0, 1)
+    c = specI.cell_centers()
+    r2 = (((c[:, 0] - c[:, 0].mean()) / (15 * s)) ** 2
+          + ((c[:, 1] - c[:, 1].mean()) / (15 * s)) ** 2)
+    elev = np.where(r2 < 0.5, 3000.0 * (1.0 - r2), np.nan)
+    rm = GCMRegridderModelE(grO, specA, op, np.round(op)).regrid_matrices(
+        "s", elev)
+    for name in ("EvI", "AvI", "IvE", "IvA"):
+        M = rm.matrix(name, RegridParams())
+        ice = name.startswith("I")
+        kern = spmm_dest_ice if ice else spmm_dest_small
+        pack = csr_pack(M, small_axis="cols" if ice else "rows", nv=16,
+                        device=cuda)
+        csr = pack.ice if ice else pack.small
+        x = rng.uniform(250.0, 300.0, (M.shape[1], 16)).astype(np.float32)
+        xt = torch.as_tensor(x, device=cuda)
+        n0 = kern.launches
+        got = kern(csr, xt)
+        assert kern.launches == n0 + 1
+        want = spmm_ref(csr, xt)
+        torch.cuda.synchronize()
+        ulp = torch.finfo(torch.float32).eps * want.abs()
+        assert bool(((got - want).abs() <= ulp).all()), name
+        oracle = M.apply(x.astype(np.float64).T).T
+        live = M.wM > 0
+        g = got.cpu().numpy().astype(np.float64)
+        raw = np.abs(g[live] - oracle[live]).max() / np.abs(
+            oracle[live]).max()
+        assert raw < 5e-7, (name, raw)

@@ -9,8 +9,11 @@ matrices EvI/IvE/AvI/IvA (with and without the smoother's sigma) and
 E1vE0, unit conversions and the coupling contracts, ``Indexing``,
 grid/exchange/regridder/matrix files written by either package and read
 back by the other, the multivec wire format (``to_dense``, ``from_dense``,
-``concatenate``) and the TOPO pipeline (``make_topoo``, ``merge_topo``,
-``elevation_class_fields``) on tests/test_topo_modele.py's inputs.
+``concatenate``), the TOPO pipeline (``make_topoo``, ``merge_topo``,
+``elevation_class_fields``) on tests/test_topo_modele.py's inputs, the
+region predicates of ``grid/gen.py`` on tests/test_gridspec.py:79's, and
+the SeaRISE and GISS readers and writers (``io/searise.py``,
+``io/giss.py``) on tests/test_ingest.py's.
 """
 import dataclasses
 
@@ -22,7 +25,9 @@ from icebin_tpu.coupler import multivec as ref_mv
 from icebin_tpu.coupler import units as ref_units
 from icebin_tpu.coupler import varset as ref_varset
 from icebin_tpu.coupler.e1ve0 import e1ve0_matrix as ref_e1ve0
+from icebin_tpu.grid import gen as ref_gen
 from icebin_tpu.grid import proj as ref_proj, spec as ref_spec
+from icebin_tpu.io import giss as ref_giss, searise as ref_searise
 from icebin_tpu.grid.exchange import make_exchange_grid as ref_build
 from icebin_tpu.io import ncio as ref_ncio
 from icebin_tpu.regrid.gcmregridder import GCMRegridder as RefRegridder
@@ -36,7 +41,9 @@ from icebin_tpu_torch.coupler import multivec as port_mv
 from icebin_tpu_torch.coupler import units as port_units
 from icebin_tpu_torch.coupler import varset as port_varset
 from icebin_tpu_torch.coupler.e1ve0 import e1ve0_matrix as port_e1ve0
+from icebin_tpu_torch.grid import gen as port_gen
 from icebin_tpu_torch.grid import proj as port_proj, spec as port_spec
+from icebin_tpu_torch.io import giss as port_giss, searise as port_searise
 from icebin_tpu_torch.grid.exchange import \
     make_exchange_grid_host as port_build
 from icebin_tpu_torch.io import ncio as port_ncio
@@ -347,3 +354,117 @@ def test_elevation_class_fields_bit_identical(topo_regridders):
     assert (got[2] > 0).any()
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# -- grid/gen.py, io/searise.py, io/giss.py -----------------------------------
+
+LONLAT_CLIPS = (("spherical_clip_lonlat", (-60.0, 10.0, 55.0, 85.0)),
+                ("spherical_clip_lonlat", (150.0, -150.0, -10.0, 10.0)),
+                ("spherical_clip_cap", (-60.0, False)),
+                ("spherical_clip_cap", (60.0, True)))
+XY_CLIPS = (("euclidian_clip_box", (-50.0, -30.0, 40.0, 60.0)),
+            ("euclidian_clip_circle", (10.0, -5.0, 45.0)))
+
+
+@pytest.mark.parametrize("fn,args", LONLAT_CLIPS + XY_CLIPS)
+def test_clip_predicates_and_clipped_grid_bit_identical(fn, args):
+    """tests/test_gridspec.py:79's predicates (a Greenland-ish lon/lat
+    window, one across the date line, both caps, a box and a circle) on
+    its grids, and ``clipped_grid`` of each mask."""
+    if fn.startswith("spherical"):
+        spec = ref_spec.modele_lonlat_grid(36, 24)
+    else:
+        spec = ref_spec.GridSpecXY(xb=np.linspace(-100.0, 100.0, 21),
+                                   yb=np.linspace(-100.0, 100.0, 21),
+                                   projection=ref_proj.PlateCarree())
+    mr = getattr(ref_gen, fn)(spec, *args)
+    mp = getattr(port_gen, fn)(to_port(spec), *args)
+    assert 0 < mr.sum() < spec.ncells
+    np.testing.assert_array_equal(mp, mr)
+    gp = port_gen.clipped_grid(to_port(spec), mp)
+    gr = ref_gen.clipped_grid(spec, mr)
+    assert isinstance(gp, port_spec.Grid)
+    np.testing.assert_array_equal(gp.realized(), gr.realized())
+
+
+def assert_same_searise(dp, dr):
+    for k in ("thk", "topg", "usrf"):
+        np.testing.assert_array_equal(getattr(dp, k), getattr(dr, k), k)
+    for k in ("xb", "yb"):
+        np.testing.assert_array_equal(getattr(dp.spec, k),
+                                      getattr(dr.spec, k), k)
+    assert dp.spec.projection.to_proj4() == dr.spec.projection.to_proj4()
+    np.testing.assert_array_equal(dp.elevmask(), dr.elevmask())
+
+
+@pytest.mark.parametrize("km", [False, True])
+def test_searise_bit_identical(tmp_path, km):
+    """tests/test_ingest.py:136-165's synthetic SeaRISE files, in metre and
+    km coordinates: each package's writer gives the same bytes and the
+    same truth, and each reader gives the same data from either file."""
+    kw = dict(nx=12, ny=16, dx=5e3, km_units=True) if km else dict(
+        nx=30, ny=40, dx=20e3)
+    pr, pp = str(tmp_path / "r.nc"), str(tmp_path / "p.nc")
+    assert_same_searise(port_searise.write_synthetic_searise(pp, **kw),
+                        ref_searise.write_synthetic_searise(pr, **kw))
+    assert (tmp_path / "r.nc").read_bytes() == (tmp_path / "p.nc").read_bytes()
+    dr = ref_searise.read_searise(pr)
+    assert_same_searise(port_searise.read_searise(pr), dr)
+    assert_same_searise(port_searise.read_searise(pp), dr)
+    sp, ep = port_searise.searise_elevmask(pp)
+    sr, er = ref_searise.searise_elevmask(pr)
+    np.testing.assert_array_equal(ep, er)
+    assert isinstance(sp, port_spec.GridSpecXY)
+
+
+def test_giss_records_bit_identical(tmp_path):
+    """tests/test_ingest.py:21-86's GISS records (three 4x5-degree fields;
+    a 2x3 field of shape not inferred): each writer gives the same bytes,
+    each reader the same titles, names, shapes and bits; a corrupt
+    trailer is refused by both."""
+    rng = np.random.default_rng(0)
+    recs = [(f"F{k}: field {k} (kg m-2)",
+             rng.standard_normal((46, 72)).astype(np.float32))
+            for k in range(3)]
+    recs.append(("FOO: test field (1)",
+                 np.arange(6, dtype=np.float32).reshape(2, 3)))
+    pr, pp = tmp_path / "r.giss", tmp_path / "p.giss"
+    ref_giss.write_giss(str(pr), [ref_giss.GissRecord(a, d) for a, d in recs])
+    port_giss.write_giss(str(pp), [port_giss.GissRecord(a, d)
+                                   for a, d in recs])
+    assert pr.read_bytes() == pp.read_bytes()
+    back_r = ref_giss.read_giss(str(pr))
+    for back in (port_giss.read_giss(str(pr)),
+                 port_giss.read_giss(str(pp), shape=None)):
+        assert [(b.title, b.name) for b in back] == [
+            (b.title, b.name) for b in back_r]
+        for b, c in zip(back, back_r):
+            assert b.data.shape == c.data.shape
+            np.testing.assert_array_equal(b.data, c.data)
+    bad = tmp_path / "bad.giss"
+    raw = bytearray(pr.read_bytes())
+    raw[4 + 80 + 46 * 72 * 4: 8 + 80 + 46 * 72 * 4] = b"\0\0\0\1"
+    bad.write_bytes(bytes(raw))
+    for mod in (port_giss, ref_giss):
+        with pytest.raises(ValueError, match="marker mismatch"):
+            mod.read_giss(str(bad))
+
+
+def test_z1qx1n_bit_identical(tmp_path):
+    """tests/test_ingest.py:86-99: a synthetic 4x5-degree TOPO base written
+    as a Z1QX1N GISS file by either package is the same bytes, and either
+    reader gives the same renormalised fractions and ZATMO, on the same
+    grid, as the reference's."""
+    tr = ref_topo.synthetic_z1qx1n(ref_hntr_spec(72, 46), seed=1)
+    tp = port_topo.synthetic_z1qx1n(port_hntr_spec(72, 46), seed=1)
+    pr, pp = tmp_path / "r.giss", tmp_path / "p.giss"
+    ref_giss.write_z1qx1n(str(pr), tr)
+    port_giss.write_z1qx1n(str(pp), tp)
+    assert pr.read_bytes() == pp.read_bytes()
+    back_r = ref_giss.read_z1qx1n(str(pr))
+    back_p = port_giss.read_z1qx1n(str(pp))
+    assert isinstance(back_p, port_topo.TopoFields)
+    assert_same_topo(back_p, back_r)
+    for k in ("lonb", "latb"):
+        np.testing.assert_array_equal(getattr(back_p.spec, k),
+                                      getattr(back_r.spec, k))

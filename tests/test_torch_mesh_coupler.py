@@ -22,7 +22,19 @@ Tolerances, with their reasons:
 * one rank against the single-device coupler, fused windows, a resumed
   run and a second run at one world size: bit for bit (every sum over
   ranks is added in rank order, and a fused window runs the stepwise
-  step's operations).
+  step's operations);
+* two sheets on one mesh (tests/test_mesh_coupler.py:117), the retreat
+  and the f64 energy closure (tests/test_mass_loss.py:304, :329): each
+  rank's ledger closes as the reference's tests ask, and the books agree
+  with the port's single-device run within those tests' tolerances
+  (ice_mass 1e-7, mass_returned_I and the energy books 1e-6); sigma IvE
+  (tests/test_mesh_coupler.py:225): rtol 2e-5 from the canonical matrix;
+* ``run --mesh 2 --ice dismal``: the reference's printed ice mass, to the
+  digit, and its transport bound (< 1e-10; the figure itself is f64
+  round-off, which the two packages sum in other orders); DISMAL's dumps
+  on a mesh are the single-device run's files, their forcings within
+  FIELD_TOL (1e-5) of each field's scale (the f64 repair's totals are
+  added in rank order).
 """
 import os
 
@@ -56,10 +68,10 @@ def port_gr(n_ice=32, scale=25e3, ny=None):
     return gr
 
 
-def forcing_np(t, nE, cold=False):
+def forcing_np(t, nE, cold=False, seed_extra=0):
     """tests/test_mesh_coupler.py's forcing (tests/test_ragged_mesh.py's
     cold_forcing with ``cold``), f32."""
-    rng = np.random.default_rng(int(t) % 100003)
+    rng = np.random.default_rng((int(t) + seed_extra) % 100003)
     f = np.zeros((8, nE))
     f[0] = 1e-5 * rng.uniform(0.5, 1.0, nE)
     if not cold:
@@ -155,6 +167,145 @@ def _ragged(mesh):
                 rows_real=sc.rows_real)
 
 
+def warm_np(t, nE, tdegc=5.0, heat=2.0):
+    """tests/test_mass_loss.py's warm_forcing, f32."""
+    rng = np.random.default_rng(int(t) % 100003)
+    f = np.zeros((8, nE))
+    f[0] = 2e-6 * rng.uniform(0.5, 1.0, nE)
+    f[1] = 5.0
+    f[2] = 1.0
+    f[3] = heat
+    f[4] = tdegc
+    f[5] = 0.06
+    f[6] = 1e-7 * rng.uniform(0.2, 1.0, nE)
+    f[7] = 0.2
+    return f.astype(np.float32)
+
+
+def melt_cfg(gr, **kw):
+    """tests/test_mass_loss.py's melt_cfg in the port's classes."""
+    from icebin_tpu_torch.models.ice_sheet import IceSheetConfig
+    specI = gr.sheets["toy"].specI
+    return IceSheetConfig(nx=specI.nx, ny=specI.ny,
+                          dx=float(np.diff(specI.xb).mean()),
+                          dy=float(np.diff(specI.yb).mean()),
+                          calv_thk=700.0, calv_tau=86400.0 * 5, **kw)
+
+
+def two_sheet_gr():
+    """tests/test_mesh_coupler.py:make_gr(sheets=("greenland",
+    "antarctica")) in the port's classes."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.grid import GridSpecLonLat, GridSpecXY, PlateCarree
+    scale = 25e3
+    gr = port.GCMRegridder(GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                                          latb=np.linspace(30.0, 80.0, 7)),
+                           HCDEFS, device=CPU)
+    for k, name in enumerate(SHEETS):
+        x0 = 2.0 + 18.0 * k
+        gr.add_sheet(name, GridSpecXY(
+            xb=np.linspace(x0 * scale, (x0 + 16.0) * scale, 33),
+            yb=np.linspace(40.0 * scale, 72.0 * scale, 33),
+            projection=PlateCarree(scale=scale)), subdiv=1)
+    return gr
+
+
+# the reference seeds each sheet's forcing with hash(name), which differs
+# between processes; the port's ranks need one seed per sheet
+SHEETS = {"greenland": 0, "antarctica": 1}
+SIGMA = (60e3, 60e3)
+
+
+def _two_sheets(mesh=None):
+    """tests/test_mesh_coupler.py:117: two sheets on one mesh, 12 steps,
+    a regeneration every 5 (on the CPU without ``mesh``)."""
+    import icebin_tpu_torch as port
+    gr = two_sheet_gr()
+    cp = port.GCMCoupler(gr, port.CouplerConfig(dt=DT, regen_every=5),
+                         device=None if mesh else CPU, mesh=mesh)
+
+    cp.run_transient(lambda t, s: torch.as_tensor(
+        forcing_np(t, gr.nE, seed_extra=SHEETS[s])), 12)
+    return {"rows": cp.ledger.to_rows(),
+            "H": {s: cp.sheets[s].gathered_state().H.numpy()
+                  for s in SHEETS}}
+
+
+def _sigma(mesh):
+    """tests/test_mesh_coupler.py:225: IvE of a smoothed config on the
+    mesh, and the canonical matrix's apply of the same field."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.regrid.matrices import RegridParams
+    P = RegridParams(scale=True, correctA=True, sigma=SIGMA)
+    cp = port.GCMCoupler(port_gr(), port.CouplerConfig(
+        dt=DT, regen_every=1 << 30, params=P), mesh=mesh)
+    sc = cp.sheets["toy"]
+    fE = np.random.default_rng(13).uniform(1.0, 2.0, cp.gr.nE)
+    got = sc.gather_ice(sc.apply("IvE", torch.as_tensor(
+        fE, dtype=torch.float32)))
+    ref = sc.rm.matrix("IvE", P).apply(fE, scale=True, fill=np.nan)
+    return {"got": got.double().numpy(), "ref": ref}
+
+
+def _retreat(mesh=None, n=13, f64=False):
+    """tests/test_mass_loss.py:304 (the retreat, 13 steps, a regeneration
+    every 6) or, with ``f64``, :329 (an f64 state at 273.1 K under a cold
+    surface and strong heating, 6 steps, no regeneration), on ``mesh`` or
+    on the CPU; the ledger rows and the basal melt harvested."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.coupler.sharded import MeshIceSheetCoupler
+    from icebin_tpu_torch.coupler.varset import ice_modele_output_contract
+    gr = port_gr()
+    cfg = port.CouplerConfig(dt=DT, regen_every=(1 << 30) if f64 else 6)
+    ice = (melt_cfg(gr, dtype="float64", t_init=273.1) if f64
+           else melt_cfg(gr))
+    sc = (MeshIceSheetCoupler(gr, "toy", cfg, mesh, ice_cfg=ice) if mesh
+          else port.IceSheetCoupler(gr, "toy", cfg, device=CPU, ice_cfg=ice))
+    cp = port.GCMCoupler(gr, cfg, device=None if mesh else CPU,
+                         sheets={"toy": sc}, mesh=mesh)
+    kb = ice_modele_output_contract().index("basal_melt")
+    basal = 0.0
+    for _ in range(6 if f64 else n):
+        fE = (warm_np(cp.time, gr.nE, tdegc=-5.0, heat=40.0) if f64
+              else warm_np(cp.time, gr.nE))
+        out = cp.couple({"toy": torch.as_tensor(fE)})["toy"]["fE_out"]
+        basal += float(torch.nan_to_num(out[kb].double()).abs().sum())
+    return {"rows": cp.ledger.to_rows(), "basal": basal}
+
+
+def _dismal_cli(mesh, cfg, workdir):
+    """``run CFG --mesh N --ice dismal --device cpu`` as this rank of it
+    (``cli.run._rank``), in ``workdir``: the report rank 0 prints and the
+    files left there."""
+    from icebin_tpu_torch.cli.run import _rank
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        out = _rank(mesh, [cfg, "--mesh", str(mesh.size), "--ice",
+                           "dismal", "--device", "cpu"])
+    finally:
+        os.chdir(cwd)
+    return {"out": out}
+
+
+def dismal_dumps(out_dir, mesh=None, n=2):
+    """``DismalModel(out_dir)`` as the ice model of the toy coupler for n
+    steps (``step_for`` the mesh sheet on a mesh): the dumps' contents."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.models.dismal import DismalModel
+    cp = port.GCMCoupler(port_gr(), port.CouplerConfig(dt=DT, regen_every=4),
+                         device=None if mesh else CPU, mesh=mesh)
+    sc = cp.sheets["toy"]
+    sc.ice_step = DismalModel(out_dir=out_dir).step_for(sc)
+    _stepwise(cp, n)
+    if mesh is not None:
+        mesh.barrier()
+        if mesh.rank:
+            return None
+    return {f: dict(np.load(os.path.join(out_dir, f)))
+            for f in sorted(os.listdir(out_dir))}
+
+
 def _layout(mesh):
     """tests/test_mesh_coupler.py:156-166 at 8 ranks: 30 rows pad to 32;
     7 rows leave a rank none."""
@@ -183,6 +334,17 @@ def rank_program(mesh, cases):
         out["ragged"] = _ragged(mesh)
     if "layout" in cases:
         out["layout"] = _layout(mesh)
+    if "two_sheets" in cases:
+        out["two_sheets"] = _two_sheets(mesh)
+    if "sigma" in cases:
+        out["sigma"] = _sigma(mesh)
+    if "retreat" in cases:
+        out["retreat"] = _retreat(mesh)
+        out["f64"] = _retreat(mesh, f64=True)
+    if "dismal" in cases:
+        cfg, workdir, dumps = cases["dismal"]
+        out["dismal"] = _dismal_cli(mesh, cfg, workdir)
+        out["dismal"]["dumps"] = dismal_dumps(dumps, mesh)
     return out
 
 
@@ -197,8 +359,45 @@ def ranks1(tmp_path_factory):
 @pytest.fixture(scope="module")
 def ranks2(tmp_path_factory):
     ck = str(tmp_path_factory.mktemp("mesh_ck") / "ck.npz")
+    d = tmp_path_factory.mktemp("mesh_dismal")
+    cfg = dismal_config(d, "mesh")
+    (d / "dumps").mkdir()
     return shared_spawn(tmp_path_factory, "mesh2", rank_program, 2,
-                        {"match": True, "fused": True, "checkpoint": ck})
+                        {"match": True, "fused": True, "checkpoint": ck,
+                         "two_sheets": True, "sigma": True, "retreat": True,
+                         "dismal": (cfg, str(d / "mesh"),
+                                    str(d / "dumps"))})
+
+
+def dismal_config(d, tag):
+    """tests/test_torch_run.py's run.json (4 steps, a regeneration every 2,
+    a checkpoint every 2, no dumps) in ``d``, with the exchange grid the
+    reference builds, written to a file both CLIs read; ``d / tag`` is the
+    run's working directory."""
+    from icebin_tpu.grid import proj as ref_proj, spec as ref_spec
+    from icebin_tpu.io.ncio import write_exchange, write_grid
+    from icebin_tpu.regrid.gcmregridder import GCMRegridder
+    from icebin_tpu.utils.config import RunConfig, SheetConfig
+    scale = 25e3
+    specA = ref_spec.GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                                    latb=np.linspace(30.0, 80.0, 7))
+    specI = ref_spec.GridSpecXY(
+        xb=np.linspace(0.0, 40.0 * scale, 33),
+        yb=np.linspace(30.0 * scale, 80.0 * scale, 33),
+        projection=ref_proj.PlateCarree(scale=scale))
+    gr = GCMRegridder(specA, hcdefs=[0.0, 800.0, 2500.0])
+    gr.add_sheet("s", specI, subdiv=1, engine="numpy")
+    a, i, x = (str(d / f) for f in ("a.nc", "i.nc", "x.nc"))
+    write_grid(a, specA)
+    write_grid(i, specI)
+    write_exchange(x, gr.sheets["s"].exchange)
+    (d / tag).mkdir()
+    path = str(d / "run.json")
+    RunConfig(gridA_file=a, hcdefs=[0.0, 800.0, 2500.0], n_steps=4,
+              sheets=[SheetConfig(name="s", grid_file=i, exchange_file=x,
+                                  subdiv=1)],
+              regen_every=2, checkpoint_every=2).to_json(path)
+    return path
 
 
 @pytest.fixture(scope="module")
@@ -419,3 +618,144 @@ def test_run_cli_mesh(tmp_path):
     np.testing.assert_allclose(mesh[1]["toy.H"], one[1]["toy.H"],
                                rtol=2e-5, atol=2e-4)
     assert mesh[1]["toy.H"].shape == (32, 32)
+
+
+def test_two_sheets_on_one_mesh(ranks2):
+    """tests/test_mesh_coupler.py:117 at two ranks: both sheets close every
+    step through two regenerations, every rank books the same rows, and
+    each sheet's H is the single-device run's within the mesh tolerance."""
+    one = _two_sheets()
+    for r in ranks2:
+        got = r["two_sheets"]
+        assert len(got["rows"]) == 12
+        assert got["rows"] == ranks2[0]["two_sheets"]["rows"]
+        for s in SHEETS:
+            check_closure(got["rows"], s)
+            np.testing.assert_allclose(got["H"][s], one["H"][s],
+                                       rtol=2e-5, atol=2e-4)
+
+
+def test_mesh_sigma_ive_canonical(ranks2):
+    """tests/test_mesh_coupler.py:225: a smoothed config's IvE on the mesh
+    is its canonical matrix's (no transpose-sharing of the asymmetric
+    smoother), gathered over the ranks."""
+    for r in ranks2:
+        got, ref = r["sigma"]["got"], r["sigma"]["ref"]
+        m = np.isfinite(ref)
+        assert m.any()
+        np.testing.assert_allclose(np.where(m, got, 0.0),
+                                   np.where(m, ref, 0.0), rtol=2e-5,
+                                   atol=1e-8 * np.abs(ref[m]).max())
+
+
+def retreat_closure(rows, sheet="toy"):
+    """tests/test_mass_loss.py:_closure: the mass and energy identities."""
+    prev_m = prev_e = None
+    for r in rows:
+        m1, e1 = r[f"{sheet}.ice_mass"], r[f"{sheet}.energy_storage_I"]
+        if prev_m is not None:
+            rhs = (r[f"{sheet}.mass_delivered_I"]
+                   - r[f"{sheet}.mass_returned_I"]
+                   + r[f"{sheet}.mass_clamp_I"] + r[f"{sheet}.mass_residual"])
+            scale = max(abs(m1), abs(r[f"{sheet}.mass_delivered_I"]))
+            assert abs(m1 - prev_m - rhs) / scale < 1e-12
+            rhsE = (r[f"{sheet}.energy_delivered_I"]
+                    - r[f"{sheet}.energy_returned_I"]
+                    - r[f"{sheet}.energy_clamp_I"]
+                    + r[f"{sheet}.energy_residual"])
+            scaleE = max(abs(e1), abs(r[f"{sheet}.energy_delivered_I"]))
+            assert abs(e1 - prev_e - rhsE) / scaleE < 1e-12
+        prev_m, prev_e = m1, e1
+
+
+def test_retreat_on_a_mesh_matches_single_device(ranks2):
+    """tests/test_mass_loss.py:304: the melt and calving retreat on two
+    ranks closes its mass and energy books every step, returns mass every
+    step, and its books are the single-device run's within the reference
+    test's tolerances."""
+    one = _retreat()["rows"]
+    for r in ranks2:
+        rows = r["retreat"]["rows"]
+        retreat_closure(rows)
+        for key, tol in (("mass_returned_I", 1e-6), ("ice_mass", 1e-7),
+                         ("energy_storage_I", 1e-6),
+                         ("energy_returned_I", 1e-6)):
+            a = np.array([x[f"toy.{key}"] for x in one])
+            b = np.array([x[f"toy.{key}"] for x in rows])
+            np.testing.assert_allclose(b, a, rtol=tol)
+        assert all(x["toy.mass_returned_I"] > 0 for x in rows)
+
+
+def test_energy_closure_f64_on_a_mesh(ranks2):
+    """tests/test_mass_loss.py:329: with an f64 state the coupler's energy
+    account closes < 1e-10 every step on two ranks, basal melt live from
+    the energy path, and the books agree with the single-device run."""
+    one = _retreat(f64=True)
+    for res in (one, *(r["f64"] for r in ranks2)):
+        assert res["basal"] > 0
+        retreat_closure(res["rows"])
+        for r in res["rows"]:
+            e_in, e_del = r["toy.energy_in_E"], r["toy.energy_delivered_I"]
+            assert e_in != 0.0
+            assert abs(e_in - e_del) / abs(e_in) < 1e-10
+            scale = max(abs(r["toy.energy_delivered_I"]),
+                        abs(r["toy.energy_returned_I"]),
+                        abs(r["toy.energy_storage_I"]))
+            assert abs(r["toy.energy_residual"]) / scale < 1e-10
+            assert abs(r["toy.mass_residual"]) / max(
+                abs(r["toy.mass_delivered_I"]),
+                abs(r["toy.mass_returned_I"])) < 1e-10
+    for r in ranks2:
+        for key in ("energy_storage_I", "energy_returned_I", "ice_mass"):
+            a = np.array([x[f"toy.{key}"] for x in one["rows"]])
+            b = np.array([x[f"toy.{key}"] for x in r["f64"]["rows"]])
+            np.testing.assert_allclose(b, a, rtol=1e-6)
+
+
+def report(out):
+    """(ice mass, worst transport) of a run report's last line."""
+    line = out.strip().splitlines()[-1]
+    return (line.split("ice mass ")[1].split(" kg")[0],
+            float(line.rsplit(" ", 1)[-1]))
+
+
+def test_run_cli_mesh_dismal_matches_reference(ranks2, tmp_path):
+    """`run --mesh 2 --ice dismal --device cpu` (gloo) prints the
+    reference's `run --mesh 2 --ice dismal` ice mass, to the digit, on the
+    same run.json, and both transport figures are < 1e-10; rank 0 alone
+    writes the checkpoints."""
+    import contextlib
+    import io
+    from icebin_tpu.cli.run import main as ref_run
+    cfg = dismal_config(tmp_path, "ref")
+    os.chdir(tmp_path / "ref")
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert ref_run([cfg, "--mesh", "2", "--ice", "dismal"]) == 0
+    finally:
+        os.chdir(tmp_path)
+    want = report(buf.getvalue())
+    got = report(ranks2[0]["dismal"]["out"])
+    assert got[0] == want[0]
+    assert got[1] < 1e-10 and want[1] < 1e-10
+    assert "s: 4 steps" in ranks2[0]["dismal"]["out"]
+
+
+def test_dismal_dumps_on_a_mesh_are_the_single_device_files(ranks2,
+                                                            tmp_path):
+    """``DismalModel(out_dir).step_for(sheet)`` on two ranks writes the
+    single-device run's files: one per step, the whole real lattice each,
+    written by rank 0 from the gathered forcings."""
+    one = dismal_dumps(str(tmp_path))
+    got = ranks2[0]["dismal"]["dumps"]
+    assert ranks2[1]["dismal"]["dumps"] is None
+    assert sorted(got) == sorted(one) == ["dismal_000000.npz",
+                                          "dismal_000001.npz"]
+    for f in one:
+        assert sorted(got[f]) == sorted(one[f])
+        for k, a in one[f].items():
+            b = got[f][k]
+            assert b.shape == a.shape, k
+            scale = max(np.abs(a).max(), 1e-300)
+            assert np.abs(b - a).max() <= 1e-5 * scale, k

@@ -3,8 +3,11 @@ of icebin_tpu_torch imports icebin_tpu, and neither is loaded after the toy
 coupler, the overlap CLI, the run CLI, ``ModelEAdapter.couple_native`` and
 a gcmce shim round trip, nor after the entry points of the dest-small,
 dest-ice, fold and capacity probes and the regrid and clip kernels' geometry
-sweeps, nor in the ranks of a 2-rank gloo mesh coupler;
-chip_smoke.py imports only the port and refuses to run without a GPU.
+sweeps, nor in the ranks of a 2-rank gloo mesh coupler, nor after the ModelE
+input toolchain (``make_topoo``, ``global_ec``, ``giss2nc``, the SeaRISE
+reader, the mismatched regridder); chip_smoke.py and the coupled Greenland
+example's twin import only the port, and chip_smoke.py refuses to run
+without a GPU.
 
 Each check runs in a fresh interpreter (a subprocess), since this test
 process has JAX loaded by the suite's conftest.
@@ -156,7 +159,10 @@ def test_port_source_imports_nothing_of_the_reference():
             "parallel/distributed.py", "parallel/halo.py",
             "parallel/sharded_apply.py", "parallel/build.py",
             "parallel/coupled.py", "parallel/dryrun.py",
-            "coupler/sharded.py"} <= names
+            "coupler/sharded.py", "grid/gen.py", "io/searise.py",
+            "io/giss.py", "regrid/modele.py", "cli/make_topoo.py",
+            "cli/global_ec.py", "cli/giss2nc.py", "utils/plot.py",
+            "utils/profiling.py"} <= names
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f)
                                             if m.split(".")[0] in
                                             ("icebin_tpu", "jax", "jaxlib"))
@@ -286,12 +292,79 @@ def test_mesh_ranks_import_no_jax():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the system only through icebin_tpu_torch: it
-    imports neither JAX nor the reference package."""
-    mods = _imports(ROOT / "chip_smoke.py")
-    tops = {m.split(".")[0] for m in mods}
-    assert "icebin_tpu_torch" in tops
-    assert not tops & {"icebin_tpu", "jax", "jaxlib"}, sorted(mods)
+    """chip_smoke.py, the coupled Greenland example's twin and the grid
+    scripts' twins reach the system only through icebin_tpu_torch: they
+    import neither JAX nor the reference package."""
+    scripts = ["chip_smoke.py", "examples/coupled_greenland_torch.py"] + [
+        f"grids/{g}_torch.py" for g in ("searise", "antarctica",
+                                        "modele_ll_g4x5", "modele_ll_g2x2_5")]
+    for script in scripts:
+        mods = _imports(ROOT / script)
+        tops = {m.split(".")[0] for m in mods}
+        assert "icebin_tpu_torch" in tops, script
+        assert not tops & {"icebin_tpu", "jax", "jaxlib"}, sorted(mods)
+
+
+TOPO_RUN = """
+import contextlib, io, os, sys, tempfile
+import numpy as np
+import torch
+from icebin_tpu_torch.cli.giss2nc import main as giss2nc
+from icebin_tpu_torch.cli.global_ec import main as global_ec
+from icebin_tpu_torch.cli.make_topoo import main as make_topoo, read_topo
+from icebin_tpu_torch.grid import GridSpecXY, modele_lonlat_grid
+from icebin_tpu_torch.io import read_searise, write_synthetic_searise
+from icebin_tpu_torch.io.giss import write_z1qx1n
+from icebin_tpu_torch.io.ncio import write_gcmregridder
+from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
+from icebin_tpu_torch.regrid.hntr import hntr_spec
+from icebin_tpu_torch.regrid.modele import GCMRegridderModelE
+from icebin_tpu_torch.topo.topo import synthetic_z1qx1n
+
+cpu = torch.device("cpu")
+with tempfile.TemporaryDirectory() as d:
+    p = lambda f: os.path.join(d, f)
+    write_synthetic_searise(p("sr.nc"), nx=19, ny=27, dx=80e3)
+    sr = read_searise(p("sr.nc"))
+    specO = hntr_spec(288, 180)
+    grO = GCMRegridder(specO, [0.0, 1000.0, 3000.0], device=cpu)
+    grO.add_sheet("gis", sr.spec)
+    elev = sr.elevmask()
+    np.save(p("elev.npy"), elev)
+    base = synthetic_z1qx1n(specO)
+    mm = GCMRegridderModelE(grO, modele_lonlat_grid(144, 90), base.focean,
+                            np.round(base.focean))
+    assert mm.regrid_matrices("gis", elev).matrix("AvI").nnz > 0
+    write_gcmregridder(p("gr.nc"), grO)
+    write_z1qx1n(p("base.giss"), synthetic_z1qx1n(hntr_spec(72, 46)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert make_topoo(["--synthetic", "72x46", "--om", "36x24", "--out",
+                           p("t.nc"), "--device", "cpu"]) == 0
+        assert make_topoo(["--base", p("base.giss"), "--om", "288x180",
+                           "--out", p("m.nc"), "--regridder", p("gr.nc"),
+                           "--elevmask", "gis=" + p("elev.npy"), "--merge",
+                           "--device", "cpu"]) == 0
+        assert global_ec([p("gr.nc"), p("ec.nc"), "--elevmask",
+                          "gis=" + p("elev.npy"), "--device", "cpu"]) == 0
+        assert giss2nc([p("base.giss"), p("b.nc")]) == 0
+    read_topo(p("m.nc")).check()
+print(sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "icebin_tpu")))
+"""
+
+
+def test_topo_toolchain_imports_no_jax():
+    """The ModelE input toolchain in an interpreter that never imports JAX
+    nor the reference package: a SeaRISE file read, its sheet clipped on
+    the CPU against a ModelE ocean grid, the mismatched regridder,
+    ``make_topoo`` (synthetic, and a GISS base merged with the sheet),
+    ``global_ec`` and ``giss2nc``, all with ``--device cpu`` where the CLI
+    takes one."""
+    out = subprocess.run([sys.executable, "-c", TOPO_RUN], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

@@ -300,17 +300,16 @@ def test_dismal_dumps_from_device_tensors(tmp_path):
 def test_run_cli_refuses_mesh_and_a_missing_gpu(tmp_path, capsys,
                                                 monkeypatch):
     """--mesh is refused where it cannot run as asked (no fallback to one
-    device or another backend): with the DISMAL model, which has no
-    decomposed step, and with NCCL on the CPU; and the default --device
-    cuda needs a card."""
+    device or another backend): with NCCL on the CPU; and the default
+    --device cuda needs a card.  (``--mesh`` with DISMAL runs:
+    tests/test_torch_mesh_coupler.py holds it to the reference's run.)"""
     cfg = write_config(tmp_path)
     monkeypatch.chdir(tmp_path)
-    for flags, why in ((["--ice", "dismal"], "SIA model only"),
-                       (["--backend", "nccl"], "nccl runs on CUDA")):
-        with pytest.raises(SystemExit) as e:
-            port_run([cfg, "--mesh", "4", "--device", "cpu"] + flags)
-        assert e.value.code == 2
-        assert why in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        port_run([cfg, "--mesh", "4", "--device", "cpu", "--backend",
+                  "nccl"])
+    assert e.value.code == 2
+    assert "nccl runs on CUDA" in capsys.readouterr().err
     assert not (tmp_path / "checkpoint_000002.npz").exists()
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as e:
