@@ -10,7 +10,8 @@ then a GCMCoupler runs 6 stepwise coupling steps in bench.py's production
 mode (deferred ledger) with a matrix regeneration (and an E1vE0 remap of
 GCM-held state) every 3, then one fused window.  Phases 10 and 11 add
 Antarctica 5 km (config #5) and drive both sheets through the ModelE C
-ABI.
+ABI.  On the card every single-device SIA sheet runs the compiled step (a
+CUDA graph of the step, replayed); phase 18 holds it to the eager step.
 Phases, each of which exits non-zero on failure:
 
 1. build   every kernel of csrc/ with nvcc for sm_90a; each clip
@@ -25,7 +26,8 @@ Phases, each of which exits non-zero on failure:
            differ in any bit counted), timed beside stage 1;
 3. main    the main path, with every launch counter set to 0 just before
            it and read just after: exchange build, coupler construction,
-           6 stepwise steps, one fused window.  The exchange grid must
+           6 stepwise steps, one fused window (steps/s from the steps that
+           neither regenerate nor capture the compiled step).  The exchange grid must
            match the f64 numpy builder and its column sums the cell
            areas; every ledger row's transport identity must hold < 1e-10;
 4. spmm    the two regrid kernels on the real EvI/IvE/AvI/IvA at nv = 16
@@ -37,8 +39,9 @@ Phases, each of which exits non-zero on failure:
            K1 in the (nv, n) layout apply_ice runs, on (n, nv) and through
            the stage-1 apply_ice's transposes;
 5. profile torch.profiler over the steady steps before the next
-           regeneration: device busy time per step, the device's idle
-           share and the largest device operations;
+           regeneration (after one unprofiled step that captures):
+           device busy time per step, the device's idle share and the
+           largest device operations;
 6. toy     a small coupler on the GPU against the same coupler on the CPU
            (the plain versions) over 3 steps;
 7. polyclip the generic-polygon path: Greenland as ~165,500 hexagons of
@@ -149,7 +152,23 @@ Phases, each of which exits non-zero on failure:
            example's twin at 5 km for 3 steps, with its plot where
            matplotlib is installed (transport < 1e-10 every step, K1 and
            K2 launched); a Roofline of the K2 apply.  Each stage's ms,
-           the launches and the phase's seconds.
+           the launches and the phase's seconds;
+18. compiled the compiled step (coupler/step_graph.py: _couple_core with the
+           SIA at a fixed substep budget as one CUDA graph a matrix
+           generation and budget) against the eager _couple_core: at config
+           #3's full width 10 stepwise steps (deferred ledger) and a fused
+           window of 5, regenerating every 5, every step's fI, fE_out,
+           fA_out, H, enth and all 15 ledger entries bit for bit; one
+           steady step of each under torch.profiler (device busy ms,
+           device operations, idle share) with K1's and K2's launches
+           counted around it (a replay's counts the eager step's); a fused
+           window of 2 enqueued under torch.cuda.set_sync_debug_mode
+           ("error"), its one fetch after it, bit for bit; 1-year steps,
+           whose 10 substeps make the budget rerun on the card, bit for
+           bit; config #5's two sheets, 4 steps and a window of 2, bit for
+           bit, one graph and budget a sheet.  Step ms compiled and eager
+           (medians of the steps that neither capture nor regenerate),
+           the windows' ms, capture ms, replays and reruns.
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -174,7 +193,7 @@ import numpy as np
 from icebin_tpu_torch.tools.common import (HCDEFS, HEX_R, PEAK_BYTES_S,
                                            antarctica_spec, bound, card_name,
                                            clip_bound, greenland_specs,
-                                           hex_mesh, library_spmm,
+                                           hex_mesh, library_spmm, same,
                                            spmm_bound, time_ms)
 from icebin_tpu_torch.tools.probe_k1 import APPLY
 from icebin_tpu_torch.tools.probe_k2 import LIVE
@@ -366,11 +385,14 @@ def phase_main(specA, specI, device, counters):
     held = np.random.default_rng(1).uniform(0.5, 2.0, (2, gr.nE))
     sc.set_held_state(held)
     m_held = sc.held_mass()
-    step_ms, out = [], None
+    step_ms, out, steady = [], None, []
     for k in range(2 * REGEN):
         fE = torch.as_tensor(forcing(gr.nE, seed=k), device=device)
+        n_cap = len(sc.capture_ms)
         out, ms = wall_ms(lambda: cp.couple({"greenland": fE})["greenland"])
         step_ms.append(ms)
+        # a step that regenerates or captures the compiled step's graph
+        steady.append((k + 1) % REGEN and len(sc.capture_ms) == n_cap)
     fused = lambda t, s: torch.as_tensor(forcing(gr.nE, seed=int(t // DT)),
                                          device=device)
     _, fused_ms = wall_ms(lambda: cp.run_transient(fused, REGEN, fused=True))
@@ -379,10 +401,12 @@ def phase_main(specA, specI, device, counters):
     say(f"phase ms: exchange build {build_ms:.1f}, coupler init (matrices + "
         f"packs) {init_ms:.1f}, stepwise steps "
         f"{', '.join(f'{m:.1f}' for m in step_ms)} (regeneration in steps "
-        f"{REGEN} and {2 * REGEN}), fused window of {REGEN} {fused_ms:.1f}")
-    plain = [m for i, m in enumerate(step_ms) if (i + 1) % REGEN]
+        f"{REGEN} and {2 * REGEN}; capture ms {sc.capture_ms}), fused "
+        f"window of {REGEN} {fused_ms:.1f}")
+    plain = [m for m, ok in zip(step_ms, steady) if ok]
     say(f"coupler: {1e3 / np.median(plain):.2f} steps/s stepwise with the "
-        f"deferred ledger (median of steps without regeneration), "
+        f"deferred ledger (median of the steps that neither regenerate nor "
+        f"capture the compiled step), "
         f"{1e3 * REGEN / fused_ms:.2f} steps/s in the fused window (its "
         f"closing regeneration included)")
     say(f"launch counts in the main path: {launches}")
@@ -448,7 +472,7 @@ def check_spmm(kern, csr, A, w, tag, rng, nv=16):
     from icebin_tpu_torch.ops import k1probe, k2probe
     from icebin_tpu_torch.ops.apply import (spmm_dest_ice,
                                             spmm_dest_small_ref, spmm_ref)
-    from icebin_tpu_torch.tools.common import same
+    from icebin_tpu_torch.utils.profiling import csr_apply_bytes
     device = csr.device
     x = (260.0 + 30.0 * rng.uniform(size=(csr.n_src, nv))).astype(np.float32)
     xt = torch.as_tensor(x, device=device)
@@ -495,7 +519,23 @@ def check_spmm(kern, csr, A, w, tag, rng, nv=16):
                  f"transposes {via:.4f} ms ({1e3 * (via - ms):+.1f} us)")
     else:
         ms = rows_ms
-        times = f"stage-2 K2 {ms:.4f} ms"
+        # the same kernel writing its f64 sums unrounded (a mesh rank's
+        # partials): its own time, plain version and bound (f64 outputs)
+        f64 = {"ms": time_ms(lambda: kern(csr, xt, dtype=torch.float64), 50),
+               "plain_ms": time_ms(lambda: spmm_ref(csr, xt,
+                                                    dtype=torch.float64), 10),
+               "bound_ms": bound(csr_apply_bytes(csr, nv)
+                                 + 4 * nv * csr.n_dst,
+                                 2 * csr.vals.numel() * nv)[0]}
+        f64_ok = same(kern(csr, xt, dtype=torch.float64),
+                      spmm_dest_small_ref(csr, xt, dtype=torch.float64))
+        check(f64_ok, f"{tag} spmm_dest_small_f64 is not bit for bit "
+                      f"spmm_dest_small_ref(dtype=float64)")
+        times = (f"stage-2 K2 {ms:.4f} ms; with f64 outputs "
+                 f"(spmm_dest_small_f64) {f64['ms']:.4f} ms, plain "
+                 f"{f64['plain_ms']:.4f} ms, bound {f64['bound_ms']:.4f} ms "
+                 f"(bytes), bit for bit its plain version of its order "
+                 f"{f64_ok}")
     stage = ", ".join(f"{n} {t:.4f} ms" for n, t in stage1_ms.items())
     say(f"{kern.__name__} {tag}: ({csr.n_src} x {nv}) -> ({csr.n_dst} x "
         f"{nv}), "
@@ -512,7 +552,8 @@ def check_spmm(kern, csr, A, w, tag, rng, nv=16):
     check(exact_ok, f"{tag} {kern.__name__} is not {what}")
     return {"max_abs_err": d_plain, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "stage1_ms": stage1_ms["slots(1)"]}
+            "stage1_ms": stage1_ms["slots(1)"],
+            **({} if ice else {f"f64_{k}": v for k, v in f64.items()})}
 
 
 def check_pack(M, pack, names, rng, nv=16):
@@ -553,15 +594,21 @@ def phase_spmm(cp):
 
 def phase_profile(cp, step_ms, device, n=None, tag="profile"):
     """torch.profiler over ``n`` steady steps of every sheet of ``cp`` (by
-    default the steps left before the next regeneration): device busy time
+    default the steps left before the next regeneration after one that
+    runs unprofiled, since it captures the compiled step): device busy time
     per step is the sum of every kernel, copy and fill the profiler traced
     on the card (one stream, so they do not overlap); the idle share is
     taken against the unprofiled step time ``step_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if n is None:
-        n = min(REGEN - 1 - sc.steps_since_regen
+        # the first step of a generation captures the compiled step: it
+        # runs before the profiler starts
+        n = min(REGEN - 2 - sc.steps_since_regen
                 for sc in cp.sheets.values())
+        cp.couple({name: torch.as_tensor(forcing(cp.gr.nE, seed=9),
+                                         device=device)
+                   for name in cp.sheets})
     check(n >= 1, "no steady step left before the next regeneration")
     fE = [torch.as_tensor(forcing(cp.gr.nE, seed=10 + k), device=device)
           for k in range(n)]
@@ -847,9 +894,13 @@ def check_resume(gr, device):
     same = {k: bool(torch.equal(getattr(sa, k), getattr(sb, k)))
             for k in ("H", "enth", "t")}
     rows = a.ledger.to_rows() == b.ledger.to_rows()
+    replays = [cp.sheets["greenland"].replays for cp in (a, b)]
     say(f"run: resume from a checkpoint after step {REGEN}, {REGEN} more "
-        f"steps: bit for bit {same}, ledger rows {rows}")
+        f"steps: bit for bit {same}, ledger rows {rows}; compiled-step "
+        f"replays {replays}")
     check(all(same.values()) and rows, "resumed run is not bit-identical")
+    check(min(replays) > 0, "the resumed run did not replay the compiled "
+                            "step")
 
 
 def phase_run(specA, specI, xg, device, counters):
@@ -1194,6 +1245,7 @@ def phase_modele(gr, device, counters):
                             getattr(direct.coupler.sheets[n].state, k))
                 for n in gr.sheets for k in ("H", "enth"))
     fhc = bufs[0].reshape(nhc, -1).sum(axis=0)
+    replays = {n: sc.replays for n, sc in ad.coupler.sheets.items()}
     say(f"modele: C ABI built in {lib_ms:.1f} ms (g++, embedded CPython); "
         f"gcmce_new {new_ms:.1f} ms (files, regridder, both sheets' "
         f"matrices), dims {dims}; gcmce_couple_native "
@@ -1202,7 +1254,10 @@ def phase_modele(gr, device, counters):
         f"{same}, ledger rows {rows}, ice state {state}; sheets under ice "
         f"{sorted(set(np.unique(bufs[2])) - {0})}, max |sum_hc fhc - 1| on "
         f"iced A cells {np.abs(fhc[fhc > 0] - 1).max():.3e}; launch counts "
-        f"in the 2 gcmce_couple_native calls alone {launches}")
+        f"in the 2 gcmce_couple_native calls alone {launches}; compiled-"
+        f"step replays {replays}")
+    check(min(replays.values()) > 0,
+          "the C ABI's coupling did not replay the compiled step")
     check(all(same) and rows and state,
           "the C ABI's coupling differs from the directly driven coupler")
     check(np.abs(fhc[fhc > 0] - 1).max() < 1e-9, "fhc does not sum to 1")
@@ -2154,6 +2209,201 @@ def phase_topo(device, counters):
     say(f"topo: phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 18: the compiled step ---------------------------------------------
+
+COMPILED_REGEN = 5        # phase 18's regeneration period at config #3:
+                          # steps 2-4 and 7-9 of 10 neither capture nor
+                          # regenerate, the medians' samples
+CFL_DT = 365.2425 * 86400.0   # a 1-year step: dt_max (0.1 year) binds, so
+                              # the SIA takes 10 substeps
+
+
+def eager(cp):
+    """``cp`` with every sheet on the eager step: a plain wrapper of the SIA
+    step is not fusible, so ``couple`` runs ``_couple_core`` with the early
+    exit (the comparison run)."""
+    from icebin_tpu_torch.models.ice_sheet import step_coupled
+
+    def ice(*a):
+        return step_coupled(*a)
+    for sc in cp.sheets.values():
+        sc.ice_step = ice
+    return cp
+
+
+def same_results(oa, ob, a, b, what):
+    """Each sheet's outputs and state of the compiled coupler ``a`` bit for
+    bit the eager ``b``'s."""
+    import torch
+    for name in a.sheets:
+        for key in ("fI", "fE_out", "fA_out"):
+            check(same(oa[name][key], ob[name][key]),
+                  f"{what}: {name} {key} is not the eager step's")
+        for key in ("H", "enth", "t"):
+            check(torch.equal(getattr(a.sheets[name].state, key),
+                              getattr(b.sheets[name].state, key)),
+                  f"{what}: {name} state {key} is not the eager step's")
+
+
+def compiled_pair(gr, device, held=None, **kw):
+    """A compiled and an eager GCMCoupler on ``gr`` with one config
+    (deferred ledger) and the same held EC state."""
+    from icebin_tpu_torch import CouplerConfig, GCMCoupler
+    cfg = CouplerConfig(**{"dt": DT, "defer_ledger": True, **kw})
+    a = GCMCoupler(gr, cfg, device=device)
+    b = eager(GCMCoupler(gr, cfg, device=device))
+    if held is not None:
+        for cp in (a, b):
+            for sc in cp.sheets.values():
+                sc.set_held_state(held)
+    return a, b
+
+
+def drive_pair(a, b, steps, window, device, tag):
+    """``steps`` stepwise steps of the compiled ``a`` and the eager ``b``
+    (timed one by one, a then b), each bit for bit; then a fused run of
+    ``window`` steps of a beside the same steps of b stepwise; the ledgers
+    equal row for row.  Returns the step ms of a and b over the steps that
+    neither captured nor regenerated, and the fused and stepwise ms."""
+    import torch
+    nE, first = a.gr.nE, next(iter(a.sheets))
+    ms = ([], [])
+    for k in range(steps):
+        fE = torch.as_tensor(forcing(nE, seed=k), device=device)
+        sc = a.sheets[first]
+        n_cap, gen = len(sc.capture_ms), sc._gen
+        oa, ta = wall_ms(lambda: a.couple({n: fE for n in a.sheets}))
+        ob, tb = wall_ms(lambda: b.couple({n: fE for n in b.sheets}))
+        if len(sc.capture_ms) == n_cap and sc._gen == gen:
+            ms[0].append(ta)
+            ms[1].append(tb)
+        same_results(oa, ob, a, b, f"{tag} step {k}")
+    fn = lambda t, s: torch.as_tensor(forcing(nE, seed=int(t // a.cfg.dt)),
+                                      device=device)
+    oa, fa = wall_ms(lambda: a.run_transient(fn, window, fused=True))
+    ob, fb = wall_ms(lambda: b.run_transient(fn, window))
+    same_results(oa, ob, a, b, f"{tag} fused window")
+    rows = a.ledger.to_rows()
+    check(rows == b.ledger.to_rows(),
+          f"{tag}: the ledger rows are not the eager step's bit for bit")
+    check(len(rows) == steps + window, f"{tag}: {len(rows)} ledger rows")
+    check_ledger(rows, a.sheets, tag)
+    return ms, fa, fb
+
+
+def graph_stats(cp):
+    return {name: {"replays": sc.replays, "reruns": sc.reruns,
+                   "budget": sc.budget,
+                   "capture_ms": [round(m, 1) for m in sc.capture_ms]}
+            for name, sc in cp.sheets.items()}
+
+
+def phase_compiled(gr3, gr5, device):
+    """Phase 18 (docstring at the top)."""
+    import torch
+    from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+    t_phase = time.perf_counter()
+    med = lambda x: float(np.median(x)) if x else float("nan")
+
+    # config #3: 10 stepwise steps and a fused window of 5, regenerating
+    # every 5 (3 regenerations, each recapturing)
+    held = np.random.default_rng(1).uniform(0.5, 2.0, (2, gr3.nE))
+    a, b = compiled_pair(gr3, device, held, regen_every=COMPILED_REGEN)
+    (ms_a, ms_b), fused_a, fused_b = drive_pair(
+        a, b, 2 * COMPILED_REGEN, COMPILED_REGEN, device, "compiled #3")
+    sa = a.sheets["greenland"]
+    say(f"compiled #3: step {med(ms_a):.3f} ms compiled, {med(ms_b):.3f} "
+        f"eager (medians of {len(ms_a)} steps that neither capture nor "
+        f"regenerate: {', '.join(f'{m:.3f}' for m in ms_a)} and "
+        f"{', '.join(f'{m:.3f}' for m in ms_b)}); fused window of "
+        f"{COMPILED_REGEN} {fused_a:.1f} ms, the same steps eager and "
+        f"stepwise {fused_b:.1f} ms (each with its closing regeneration); "
+        f"{graph_stats(a)}")
+    check(sa.replays > 0, "config #3 ran no graph replay")
+    check(len(sa.capture_ms) >= 3 and sa._gen >= 4,
+          f"{sa._gen - 1} regenerations, {len(sa.capture_ms)} captures")
+
+    # one steady step profiled on each (after one that captures), with the
+    # regrid kernels' launches counted around it
+    fE = torch.as_tensor(forcing(gr3.nE, seed=20), device=device)
+    oa, ob = (cp.couple({"greenland": fE}) for cp in (a, b))
+    same_results(oa, ob, a, b, "compiled #3 after the window")
+    counts = []
+    for cp, ms, tag in ((a, ms_a, "compiled"), (b, ms_b, "eager")):
+        before = [k.launches for k in (spmm_dest_ice, spmm_dest_small)]
+        phase_profile(cp, med(ms), device, n=1, tag=f"{tag} #3 profile")
+        counts.append([k.launches - n for k, n in
+                       zip((spmm_dest_ice, spmm_dest_small), before)])
+    say(f"compiled #3: K1 and K2 launches in the profiled step {counts[0]} "
+        f"compiled (counted per replay), {counts[1]} eager")
+    check(counts[0] == counts[1] and min(counts[0]) > 0,
+          "a replay's launch counts are not the eager step's")
+
+    # a fused window with no host sync in it: the graph of this generation
+    # is captured, so enqueueing 2 steps must not synchronise; the one
+    # fetch comes after
+    fE_seq = torch.stack([torch.as_tensor(forcing(gr3.nE, seed=30 + i),
+                                          device=device) for i in range(2)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = sa.launch_window(fE_seq)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    stats, last = sa.finish_window(pending)
+    for f in fE_seq:
+        ob = b.couple({"greenland": f})
+    rows = b.ledger.to_rows()[-2:]
+    want = np.array([[r[f"greenland.{k}"] for k in sa.STAT_KEYS]
+                     for r in rows])
+    check(np.array_equal(stats, want), "the sync-free window's ledger rows "
+                                       "are not the eager steps'")
+    same_results({"greenland": last}, ob, a, b, "the sync-free window")
+    say(f"compiled #3: a fused window of 2 enqueued under "
+        f"torch.cuda.set_sync_debug_mode('error') (no host sync), its one "
+        f"fetch after; rows, outputs and state bit for bit the eager "
+        f"steps'")
+
+    # the CFL bound: a 1-year step takes 10 substeps, so from a budget of 1
+    # the fused window reruns (1, 2, 4, 8, 16) on the card
+    c, d = compiled_pair(gr3, device, regen_every=COMPILED_REGEN, dt=CFL_DT)
+    sc = c.sheets["greenland"]
+    fn = lambda t, s: torch.as_tensor(forcing(gr3.nE, seed=int(t // CFL_DT)),
+                                      device=device)
+    oc, fc = wall_ms(lambda: c.run_transient(fn, 2, fused=True))
+    od, fd = wall_ms(lambda: d.run_transient(fn, 2))
+    same_results(oc, od, c, d, "CFL-bound window")
+    tc, td = [], []
+    for _ in range(2):        # the first captures at the budget seen (10)
+        oc, t = wall_ms(lambda: c.couple({"greenland": fn(c.time, None)}))
+        tc.append(t)
+        od, t = wall_ms(lambda: d.couple({"greenland": fn(d.time, None)}))
+        td.append(t)
+        same_results(oc, od, c, d, "CFL-bound step")
+    check(c.ledger.to_rows() == d.ledger.to_rows(),
+          "CFL-bound ledger rows are not the eager step's")
+    check_ledger(c.ledger.to_rows(), c.sheets, "compiled #3, 1-year steps")
+    say(f"compiled #3, 1-year steps: fused window of 2 {fc:.1f} ms "
+        f"compiled (its reruns and captures included), {fd:.1f} eager; the "
+        f"next two steps {tc[0]:.3f} (capturing) and {tc[1]:.3f} ms "
+        f"compiled, {td[0]:.3f} and {td[1]:.3f} eager; {graph_stats(c)}")
+    check(sc.reruns > 0 and sc.budget >= 2, "no budget rerun on the card")
+
+    # config #5: both sheets, one graph and one budget each
+    a5, b5 = compiled_pair(gr5, device, regen_every=REGEN)
+    (ms_a, ms_b), fused_a, fused_b = drive_pair(a5, b5, REGEN + 1,
+                                                REGEN - 1, device,
+                                                "compiled #5")
+    say(f"compiled #5: step {med(ms_a):.3f} ms compiled, {med(ms_b):.3f} "
+        f"eager ({len(ms_a)} steps that neither capture nor regenerate); "
+        f"fused window of {REGEN - 1} {fused_a:.1f} ms, eager stepwise "
+        f"{fused_b:.1f} ms; {graph_stats(a5)}")
+    for name, sc in a5.sheets.items():
+        check(sc.replays > 0, f"config #5 {name} ran no graph replay")
+        check(sc._gen >= 3, f"config #5 {name}: {sc._gen - 1} regenerations")
+    say(f"compiled: phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     global CARD
     import torch
@@ -2205,6 +2455,7 @@ def main():
     phase_mesh(specA, specI, cp.gr.sheets["greenland"].exchange, device,
                step_ms)
     phase_topo(device, counters)
+    phase_compiled(cp.gr, ms.gr, device)
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]
@@ -2230,7 +2481,8 @@ def main():
                             "903" if name == "spmm_dest_ice" else "807"),
                         dict(res, max_abs_err=max(r["max_abs_err"]
                                                   for _, r in spmm[name]))),
-                    stage1_ms=res["stage1_ms"])
+                    **{k: v for k, v in res.items()
+                       if k == "stage1_ms" or k.startswith("f64_")})
 
     kernels = [
         spmm_row("spmm_dest_ice", "IvE"),

@@ -15,11 +15,25 @@ Differences from the reference:
   ``CouplerConfig.nv`` replaces ``pallas_nv``.  ``prods_passes`` is
   accepted and ignored: the kernels always sum in f64.
 * Mass and energy books (mfac, ledger sums) are always f64.
-* PyTorch runs eagerly, so ``couple_window`` is a plain loop over
-  ``_couple_core`` and ``couple`` needs no jit cache.  Which models a
-  fused run takes window by window is still the reference's rule (the SIA
-  step, or a model marked ``jittable``; any other runs stepwise), so the
-  two packages dump and checkpoint on the same steps.
+* The compiled step (the reference's ``jax.jit`` of ``_couple_core``) is a
+  CUDA graph (``coupler.step_graph``): a sheet whose matrices are the
+  single-device ``CsrView`` packs and whose ice model is fusible by the
+  reference's rule (the SIA step, or a model marked ``jittable``;
+  ``_fusible`` at ``coupler.py:485-493``) captures ``_couple_core`` with
+  the SIA at a fixed budget of CFL substeps (``advance(...,
+  substeps=s)``), once per matrix generation and budget, and replays it.
+  ``couple`` replays one step and reads (short, substeps) back in one
+  small fetch; ``couple_window`` replays the K steps back to back and
+  fetches the K ledger rows and flags once at the end, so a window is
+  one sync, as the reference's ``lax.scan`` is.  A step or window whose
+  budget fell short reruns from the same start at twice the budget (at
+  most ``n_substeps_max``); the budget then starts at the most substeps
+  seen.  The graph runs the eager step's operations in its order, so its
+  results are the eager step's bit for bit.  On the CPU the same loop
+  runs the budgeted step eagerly.  Mesh-sharded views and other models
+  (DISMAL) run ``_couple_core`` eagerly, as there; which models a fused
+  run takes window by window is the reference's rule too, so the two
+  packages dump and checkpoint on the same steps.
 * Fields reach the writer through ``.cpu().numpy()``.
 * With a ``mesh`` (``parallel.mesh.IceMesh``) each rank runs its own
   ``GCMCoupler`` over its y-block of every sheet (``coupler.sharded``):
@@ -43,11 +57,13 @@ from icebin_tpu_torch.coupler.varset import (VarSet,
                                              ice_modele_output_contract,
                                              ice_native_input_contract,
                                              modele_ice_input_contract)
+from icebin_tpu_torch.coupler.step_graph import StepGraph
 from icebin_tpu_torch.models.ice_sheet import (RHO_ICE, IceFluxes,
                                                IceSheetConfig, IceSheetState,
-                                               init_state, step_coupled)
+                                               advance, init_state,
+                                               step_coupled)
 from icebin_tpu_torch.ops.apply import apply_view
-from icebin_tpu_torch.ops.csr import csr_view_pair
+from icebin_tpu_torch.ops.csr import CsrView, csr_view_pair
 from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
 from icebin_tpu_torch.regrid.matrices import RegridMatrices, RegridParams
 
@@ -117,6 +133,11 @@ class IceSheetCoupler:
         self.contract_in_ice = contract_in_ice or ice_native_input_contract()
         self._fac_in, self._off_in = self.contract_in.conversion_to(
             self.contract_in_ice)
+        #: the unit conversion and the repaired rows' indices as device
+        #: constants by forcing dtype (a copy from a host list inside the
+        #: step would break its capture)
+        self._conv: Dict[torch.dtype, tuple] = {}
+        self._conversion(torch.float32)
         self.contract_out = contract_out or ice_modele_output_contract()
         self.rm: Optional[RegridMatrices] = None
         self._mats: Dict[str, object] = {}
@@ -128,6 +149,18 @@ class IceSheetCoupler:
         #: (ny, nx) bool mask of the physical lattice cells, or None when
         #: all are; a ragged mesh decomposition's pad rows are not
         self._active_mask: Optional[torch.Tensor] = None
+        #: the compiled step: graphs of the current matrix generation by
+        #: substep budget, under the key of what else they froze
+        self._gen = 0
+        self._graphs: Dict[int, StepGraph] = {}
+        self._graph_key = None
+        #: CFL substeps the compiled step starts at (the most seen)
+        self.budget = 1
+        #: compiled-step counters: graph replays, budget reruns (steps or
+        #: windows run again at a larger budget), and each capture's ms
+        self.replays = 0
+        self.reruns = 0
+        self.capture_ms: list = []
         self.regen_matrices()
 
     def place_state(self, state: IceSheetState) -> None:
@@ -165,6 +198,8 @@ class IceSheetCoupler:
         self._mats = {}
         self._build_mats()
         self.steps_since_regen = 0
+        self._gen += 1
+        self._drop_graphs()
         return old
 
     def _pair(self, M, small_axis="rows"):
@@ -252,14 +287,28 @@ class IceSheetCoupler:
 
     # -- one coupling step -------------------------------------------------
 
-    def _couple_core(self, ive, evi, avi, state, fE_in):
-        """The device math of one coupling step.  Returns (fI, fE_out,
+    def _conversion(self, dtype: torch.dtype):
+        """(factor, offset, repaired-row index) device tensors of the input
+        contract's conversion, for forcing of ``dtype``."""
+        if dtype not in self._conv:
+            idx = (torch.as_tensor([self.contract_in.index(n)
+                                    for n in self.cfg.repair_fields],
+                                   device=self.device)
+                   if self.cfg.repair else None)
+            self._conv[dtype] = (
+                torch.as_tensor(self._fac_in, dtype=dtype,
+                                device=self.device),
+                torch.as_tensor(self._off_in, dtype=dtype,
+                                device=self.device), idx)
+        return self._conv[dtype]
+
+    def _couple_core(self, ive, evi, avi, state, fE_in, ice_step=None):
+        """The device math of one coupling step, with the ice model
+        ``ice_step`` (default ``self.ice_step``).  Returns (fI, fE_out,
         fA_out, new_state, stats (15,) f64)."""
         cfg = self.cfg
         cin = self.contract_in
-        dev = fE_in.device
-        fac = torch.as_tensor(self._fac_in, dtype=fE_in.dtype, device=dev)
-        off = torch.as_tensor(self._off_in, dtype=fE_in.dtype, device=dev)
+        fac, off, idx = self._conversion(fE_in.dtype)
         # 1. E -> I forcing transport fused with the unit conversion
         fI = apply_view(ive, fE_in, scale=True, var_factor=fac,
                         var_offset=off, fill=math.nan)
@@ -268,7 +317,6 @@ class IceSheetCoupler:
         if cfg.repair:
             # the f64 repaired rows feed the ledger, their f32 downcast
             # the model (its quantization lands in the residual rows)
-            idx = torch.as_tensor([cin.index(n) for n in rep], device=dev)
             src_conv = fE_in[idx] * fac[idx, None]
             m_src = weighted_mass(src_conv, ive.Mw)
             sub = torch.where(torch.isfinite(fI[idx]), fI[idx], 0.0)
@@ -334,8 +382,8 @@ class IceSheetCoupler:
         e_delivered = sum(dl[n] for n in self.ENERGY_IN_FIELDS) + e_rain
 
         # 2. ice model step
-        new_state, fx = self.ice_step(self.ice_cfg, state, smbI, tsI,
-                                      cfg.dt, enthI)
+        new_state, fx = (ice_step or self.ice_step)(
+            self.ice_cfg, state, smbI, tsI, cfg.dt, enthI)
         ad = self.cell_area * cfg.dt
         shed = (fx.runoff + fx.basal_melt + fx.calving).to(_F64)
         e_shed = (fx.enth_runoff + fx.enth_basal + fx.enth_calving).to(_F64)
@@ -381,9 +429,14 @@ class IceSheetCoupler:
     def couple(self, t: float, fE_in: torch.Tensor, ledger: Ledger):
         """fE_in: (n_contract_in, nE) GCM fields on the E grid, GCM units,
         on this coupler's device.  Returns E/A-grid outputs and
-        diagnostics."""
-        fI, fE_out, fA_out, new_state, stats = self._couple_core(
-            *self._mats_hot(), self.state, fE_in)
+        diagnostics.  A fusible sheet runs the compiled step (the module
+        docstring), any other ``_couple_core`` eagerly."""
+        if self._fusible():
+            fI, fE_out, fA_out, new_state, stats = self._couple_compiled(
+                fE_in)
+        else:
+            fI, fE_out, fA_out, new_state, stats = self._couple_core(
+                *self._mats_hot(), self.state, fE_in)
         self.state = new_state
         keys = tuple(f"{self.sheet}.{k}" for k in self.STAT_KEYS)
         if self.cfg.defer_ledger:
@@ -413,16 +466,148 @@ class IceSheetCoupler:
         """K coupling steps on fixed matrices (the caller bounds K by the
         regen cadence and regenerates at the boundary).  fE_seq:
         (K, n_contract_in, nE).  Returns (stats (K, 15) f64 host array,
-        dict with the LAST step's fI/fE_out/fA_out); one host sync."""
+        dict with the LAST step's fI/fE_out/fA_out).  Compiled, the K steps
+        are K graph replays with no host read between them and one fetch
+        at the end (a window whose budget fell short runs again from its
+        start at a larger budget); eager, the K ``_couple_core`` steps and
+        one fetch.  ``launch_window`` and ``finish_window`` are its two
+        halves: the first reads nothing on the host."""
+        return self.finish_window(self.launch_window(fE_seq))
+
+    def launch_window(self, fE_seq: torch.Tensor) -> "_Window":
+        """Enqueue ``couple_window``'s K steps from the current state;
+        ``finish_window`` fetches them and takes them as this sheet's."""
+        if self._fusible():
+            return self._window_compiled(fE_seq, self.budget)
         mats = self._mats_hot()
-        stats, last = [], None
+        state, stats = self.state, []
         for fE in fE_seq:
-            fI, fE_out, fA_out, self.state, s = self._couple_core(
-                *mats, self.state, fE)
+            fI, fE_out, fA_out, state, s = self._couple_core(*mats, state,
+                                                             fE)
             stats.append(s)
-            last = {"fI": fI, "fE_out": fE_out, "fA_out": fA_out}
-        self.steps_since_regen += len(stats)
-        return torch.stack(stats).cpu().numpy(), last
+        return _Window(fE_seq, None, torch.stack(stats),
+                       {"fI": fI, "fE_out": fE_out, "fA_out": fA_out},
+                       state)
+
+    def finish_window(self, w: "_Window"):
+        """The window's one fetch; see ``couple_window``."""
+        host = w.rows.cpu().numpy()
+        if w.budget is not None:
+            n_max = self.ice_cfg.n_substeps_max
+            if host[:, -2].any() and w.budget < n_max:
+                self.reruns += 1
+                return self.finish_window(self._window_compiled(
+                    w.fE_seq, min(2 * w.budget, n_max)))
+            self.budget = max(self.budget, int(host[:, -1].max()))
+        self.state = w.state
+        self.steps_since_regen += len(host)
+        return host[:, :len(self.STAT_KEYS)], w.last
+
+    # -- the compiled step ---------------------------------------------------
+
+    def _fusible(self) -> bool:
+        """The reference's ``_fusible`` (``coupler.py:485-493``): the hot
+        matrices are the single-device packs (not a mesh rank's views) and
+        the ice model is the SIA step or marked ``jittable``."""
+        return (all(isinstance(m, CsrView) for m in self._mats_hot())
+                and (self.ice_step is step_coupled
+                     or getattr(self.ice_step, "jittable", False)))
+
+    def _step_fn(self, substeps: int):
+        """The compiled step over flat tensors: fn(H, bed, t, enth, fE_in)
+        -> (fI, fE_out, fA_out, H, bed, t, enth, stats, flags): with the SIA
+        at ``substeps`` CFL substeps, ``flags`` the (2,) int32 (short,
+        active substeps); another model has no budget, and flags (0, 0)."""
+        mats = self._mats_hot()
+
+        def fn(H, bed, t, enth, fE_in):
+            flags = []
+            ice = self.ice_step
+            if ice is step_coupled:
+                def ice(cfg, state, smb, tsurf, dt, enth_flux=None):
+                    state, fx, short, n = advance(cfg, state, smb, tsurf,
+                                                  dt, enth_flux,
+                                                  substeps=substeps)
+                    flags.append(torch.stack([short.to(n.dtype), n]))
+                    return state, fx
+            fI, fE_out, fA_out, st, stats = self._couple_core(
+                *mats, IceSheetState(H=H, bed=bed, t=t, enth=enth), fE_in,
+                ice_step=ice)
+            if not flags:
+                flags.append(torch.zeros(2, dtype=torch.int32,
+                                         device=H.device))
+            return (fI, fE_out, fA_out, st.H, st.bed, st.t, st.enth, stats,
+                    flags[0])
+
+        return fn
+
+    def _drop_graphs(self) -> None:
+        for g in self._graphs.values():
+            g.reset()
+        self._graphs = {}
+
+    def _run_compiled(self, substeps: int, state, fE_in):
+        """One run of the compiled step at budget ``substeps`` (captured at
+        first use: a graph freezes the matrices, the ice model, the configs
+        and the inputs' layout, so a change of any drops the graphs) from
+        ``state`` ((H, bed, t, enth)); returns the step's static outputs."""
+        inputs = (*state, fE_in)
+        key = (self._gen, self.ice_step, self.ice_cfg, self.cfg,
+               tuple((x.shape, x.dtype) for x in inputs))
+        if key != self._graph_key:
+            self._drop_graphs()
+            self._graph_key = key
+        g = self._graphs.get(substeps)
+        if g is None:
+            g = self._graphs[substeps] = StepGraph(self._step_fn(substeps),
+                                                   inputs)
+            if g.capture_ms is not None:
+                self.capture_ms.append(g.capture_ms)
+        out = g.run(inputs)
+        if g.graph is not None:
+            self.replays += 1
+        return out
+
+    def _couple_compiled(self, fE_in):
+        """``_couple_core``'s results for one step from ``self.state``
+        through the compiled step, each a copy of the graph's output; one
+        small fetch reads (short, substeps), and a short step runs again at
+        a larger budget."""
+        n_max = self.ice_cfg.n_substeps_max
+        s = self.budget
+        st = self.state
+        while True:
+            out = self._run_compiled(s, (st.H, st.bed, st.t, st.enth), fE_in)
+            short, n = out[8].tolist()
+            if not short or s >= n_max:
+                break
+            s = min(2 * s, n_max)
+            self.reruns += 1
+        self.budget = max(self.budget, n)
+        fI, fE_out, fA_out, H, bed, t, enth, stats = (x.clone()
+                                                      for x in out[:8])
+        return (fI, fE_out, fA_out,
+                IceSheetState(H=H, bed=bed, t=t, enth=enth), stats)
+
+    def _window_compiled(self, fE_seq, substeps: int) -> "_Window":
+        """K compiled steps from ``self.state`` at budget ``substeps``, back
+        to back: each step's stats and flags land in one (K, 17) f64
+        buffer, and only the last step's outputs and state are copied
+        out."""
+        rows = torch.empty((len(fE_seq), len(self.STAT_KEYS) + 2),
+                           dtype=_F64, device=self.device)
+        st = self.state
+        state = (st.H, st.bed, st.t, st.enth)
+        for i, fE in enumerate(fE_seq):
+            out = self._run_compiled(substeps, state, fE)
+            rows[i, :-2].copy_(out[7])
+            rows[i, -2:].copy_(out[8])
+            state = out[3:7]
+        H, bed, t, enth = (x.clone() for x in state)
+        last = {k: x.clone() for k, x in zip(("fI", "fE_out", "fA_out"),
+                                             out[:3])}
+        return _Window(fE_seq, substeps, rows, last,
+                       IceSheetState(H=H, bed=bed, t=t, enth=enth))
 
     def _ice_outputs(self, state, fx: IceFluxes, rainI, rain_enthI,
                      inv_mfac) -> torch.Tensor:
@@ -449,6 +634,20 @@ class IceSheetCoupler:
                             runoff, r(fx.basal_melt), r(fx.calving),
                             enth_run, r(fx.enth_basal), r(fx.enth_calving),
                             h_col])
+
+
+@dataclasses.dataclass
+class _Window:
+    """A window ``launch_window`` enqueued: its forcing, the substep budget
+    of the compiled step (None: eager), the device rows (K, 15) of stats,
+    or (K, 17) with (short, substeps) after them, the last step's outputs
+    and the state after the window."""
+
+    fE_seq: torch.Tensor
+    budget: Optional[int]
+    rows: torch.Tensor
+    last: dict
+    state: IceSheetState
 
 
 class GCMCoupler:
@@ -519,11 +718,13 @@ class GCMCoupler:
                       n_steps: int, fused: bool = False):
         """N-step transient loop, conservation booked per step.
         forcing_fn(t, sheet) -> (n_in, nE) tensor.  ``fused=True`` runs each
-        regeneration window through ``couple_window`` (one host sync per
-        window); ledger rows, regeneration and E1vE0 are the same, and the
-        writer dumps each window's last step.  A sheet whose ice model the
-        reference cannot fuse (neither the SIA step nor marked
-        ``jittable``) runs the whole transient stepwise, as there."""
+        regeneration window through ``couple_window``, every sheet's window
+        enqueued before any is fetched: on the compiled step one host sync
+        per window (more only where a budget fell short); ledger rows,
+        regeneration and E1vE0 are the same, and the writer dumps each
+        window's last step.  A sheet whose ice model the reference cannot
+        fuse (neither the SIA step nor marked ``jittable``) runs the whole
+        transient stepwise, as there."""
         fusible = all(sc.ice_step is step_coupled
                       or getattr(sc.ice_step, "jittable", False)
                       for sc in self.sheets.values())
@@ -544,12 +745,14 @@ class GCMCoupler:
                            *(sc.cfg.regen_every - sc.steps_since_regen
                              for sc in self.sheets.values())))
             t0 = self.time
-            stats, results, fE_last = {}, {}, {}
+            stats, results, fE_last, pending = {}, {}, {}, {}
             for name, sc in self.sheets.items():
                 fE_seq = torch.stack([forcing_fn(t0 + i * cfg.dt, name)
                                       for i in range(k)])
                 fE_last[name] = fE_seq[-1]
-                stats[name], results[name] = sc.couple_window(fE_seq)
+                pending[name] = sc.launch_window(fE_seq)
+            for name, sc in self.sheets.items():
+                stats[name], results[name] = sc.finish_window(pending[name])
             for i in range(k):
                 self.ledger.open_step(t0 + i * cfg.dt)
                 for name in self.sheets:

@@ -11,10 +11,15 @@ so the coupler's mass and energy books close by construction.
 
 Differences from the reference, none of which changes a result:
 
-* The CFL substep loop (``lax.while_loop`` at ``ice_sheet.py:458-462``) is
-  a Python loop that reads the device scalar ``t_done < dt`` after every
-  substep (one host sync per substep), so it runs exactly the reference's
-  substeps and stops as early.
+* The CFL substep loop (``lax.while_loop`` at ``ice_sheet.py:458-462``)
+  has two forms.  By default ``advance`` is a Python loop that reads the
+  device scalar ``t_done < dt`` after every substep (one host sync per
+  substep), so it runs exactly the reference's substeps and stops as
+  early; the mesh step runs it.  ``advance(..., substeps=s)`` runs exactly
+  ``s`` substeps and reads nothing on the host: each substep is gated on
+  the device by ``t_done < dt``, so the substeps that run give the early
+  exit's bits, and the flag that the budget fell short comes back as a
+  device tensor (the coupler's compiled step runs this form).
 * ``state.t`` is always f64.
 """
 from __future__ import annotations
@@ -274,7 +279,7 @@ def step_coupled(cfg: IceSheetConfig, state: IceSheetState, smb_flux,
 
 def advance(cfg: IceSheetConfig, state: IceSheetState, smb_flux, tsurf,
             dt: float, enth_flux=None, *, ghost=_pad, global_max=None,
-            rows_real=None):
+            rows_real=None, substeps: Optional[int] = None):
     """``step_coupled`` on a lattice block: the CFL substep loop with its
     ghost layer from ``ghost`` (default: edge-replicated, the whole
     lattice), the CFL diffusivity max reduced by ``global_max`` (default:
@@ -283,7 +288,22 @@ def advance(cfg: IceSheetConfig, state: IceSheetState, smb_flux, tsurf,
     the last real row after every substep (zero flux across the real/pad
     face) and kept out of the books.  The mesh step
     (``parallel.coupled.make_sharded_ice_step``) passes a halo exchange, a
-    max over ranks and its ragged rows; the block's shape is the state's."""
+    max over ranks and its ragged rows; the block's shape is the state's.
+
+    By default the loop reads ``t_done < dt`` on the host after every
+    substep and stops when it is false or after ``cfg.n_substeps_max``
+    substeps.  With ``substeps`` = s (1 <= s <= ``cfg.n_substeps_max``) it
+    runs exactly s substeps and reads nothing on the host: a substep is
+    active while ``t_done < dt`` (a 0-d bool on the device), and every
+    carried value (H, U, ``t_done``, the six removal sums and the two clamp
+    sums) takes the substep's result only where active
+    (``torch.where(active, new, old)``, which is ``new`` bit for bit).  So
+    when s covers the substeps the early exit takes, the result is the
+    early exit's bit for bit, whatever an inactive substep computes (basal
+    melt does not scale with ``dt_sub``, so a zero-dt substep is not a
+    no-op here).  Returns (state, IceFluxes, short, active): ``short`` the
+    0-d bool ``t_done < dt`` after the budget, ``active`` the int32 count
+    of substeps that were active, both on the device."""
     dt_ = state.H.dtype
     shape = tuple(state.H.shape)
     smb = (smb_flux.reshape(shape) / RHO_ICE).to(dt_)   # m/s ice equivalent
@@ -303,13 +323,7 @@ def advance(cfg: IceSheetConfig, state: IceSheetState, smb_flux, tsurf,
     def real(a):
         return a if live is None else torch.where(live, a, 0.0)
 
-    H, U = state.H, state.enth
-    t_done = torch.zeros((), dtype=dt_, device=H.device)
-    cums = [torch.zeros_like(H)] * 6
-    clamp_s = torch.zeros((), dtype=dt_, device=H.device)
-    eclamp_s = torch.zeros((), dtype=dt_, device=H.device)
-    it = 0
-    while it < cfg.n_substeps_max and bool(t_done < dt):
+    def substep(H, U, t_done, cums, clamp_s, eclamp_s):
         Hg = ghost(H)
         sg = bedg + Hg
         div, divE, Dmax = sia_flux_div_energy_ghosted(Hg, sg, ghost(U),
@@ -342,8 +356,36 @@ def advance(cfg: IceSheetConfig, state: IceSheetState, smb_flux, tsurf,
         eclamp_s = eclamp_s + real(e_clamp).sum()
         if live is not None:
             H_new, U_new = fix_pad(H_new), fix_pad(U_new)
-        H, U, t_done = H_new, U_new, t_done + dt_sub
-        it += 1
+        return H_new, U_new, t_done + dt_sub, cums, clamp_s, eclamp_s
+
+    dev = state.H.device
+    carry = (state.H, state.enth, torch.zeros((), dtype=dt_, device=dev),
+             [torch.zeros_like(state.H)] * 6,
+             torch.zeros((), dtype=dt_, device=dev),
+             torch.zeros((), dtype=dt_, device=dev))
+    if substeps is None:
+        it = 0
+        while it < cfg.n_substeps_max and bool(carry[2] < dt):
+            carry = substep(*carry)
+            it += 1
+    else:
+        if not 1 <= substeps <= cfg.n_substeps_max:
+            raise ValueError(f"substeps={substeps} outside [1, "
+                             f"n_substeps_max={cfg.n_substeps_max}]")
+        def gate(active, a, b):
+            # a value the substep left as it was (the removal sums without
+            # ablation) needs no select
+            return b if a is b else torch.where(active, a, b)
+
+        n_active = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(substeps):
+            active = carry[2] < dt
+            new = substep(*carry)
+            carry = (*(gate(active, a, b) for a, b in zip(new[:3], carry[:3])),
+                     [gate(active, a, b) for a, b in zip(new[3], carry[3])],
+                     *(gate(active, a, b) for a, b in zip(new[4:], carry[4:])))
+            n_active = n_active + active
+    H, U, t_done, cums, clamp_s, eclamp_s = carry
 
     new_state = IceSheetState(H=H, bed=state.bed, t=state.t + dt, enth=U)
     melt_c, basal_c, calv_c, er_c, ec_c, elat_c = cums
@@ -357,4 +399,6 @@ def advance(cfg: IceSheetConfig, state: IceSheetState, smb_flux, tsurf,
         enth_calving=ec_c / dt,
         enth_clamp=eclamp_s / dt,
         latent_pdd=(melt_c * (RHO_ICE * L_FUSION) - elat_c) / dt)
-    return new_state, fluxes
+    if substeps is None:
+        return new_state, fluxes
+    return new_state, fluxes, t_done < dt, n_active

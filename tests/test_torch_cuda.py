@@ -1074,3 +1074,131 @@ def test_mismatched_matrices_through_k1_k2_on_the_card(cuda):
         raw = np.abs(g[live] - oracle[live]).max() / np.abs(
             oracle[live]).max()
         assert raw < 5e-7, (name, raw)
+
+
+# -- the compiled coupling step (coupler/step_graph.py) ----------------------
+
+def graph_toy(cuda, dt=86400.0 * 30, dt_max=None, **kw):
+    """The one-sheet toy coupler on the card (25 km cells, 4 ECs), a
+    regeneration every 2 steps; ``dt_max`` lifts the SIA's substep cap so
+    the CFL binds under a long ``dt``."""
+    import dataclasses
+
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.grid import GridSpecLonLat, GridSpecXY, PlateCarree
+    s = 25e3
+    specA = GridSpecLonLat(lonb=np.linspace(0.0, 40.0, 7),
+                           latb=np.linspace(30.0, 80.0, 7))
+    specI = GridSpecXY(xb=np.linspace(0.0, 40.0 * s, 41),
+                       yb=np.linspace(30.0 * s, 80.0 * s, 41),
+                       projection=PlateCarree(scale=s))
+    gr = port.GCMRegridder(specA, [0.0, 500.0, 1000.0, 2000.0], device=cuda)
+    gr.add_sheet("toy", specI, subdiv=1)
+    cp = port.GCMCoupler(gr, port.CouplerConfig(dt=dt, regen_every=2, **kw),
+                         device=cuda)
+    sc = cp.sheets["toy"]
+    if dt_max is not None:
+        sc.ice_cfg = dataclasses.replace(sc.ice_cfg, dt_max=dt_max)
+    sc.set_held_state(np.random.default_rng(3).uniform(0.5, 2.0,
+                                                       (2, gr.nE)))
+    return cp
+
+
+def eager(cp):
+    """``cp`` on the eager step: a plain wrapper of the SIA step is not
+    fusible, so its sheets run ``_couple_core`` with the early exit."""
+    from icebin_tpu_torch.models.ice_sheet import step_coupled
+
+    def ice(*a):
+        return step_coupled(*a)
+    for sc in cp.sheets.values():
+        sc.ice_step = ice
+    return cp
+
+
+@pytest.mark.parametrize("cfl", [False, True], ids=["30d", "cfl_bound"])
+def test_graph_step_is_the_eager_step(cuda, cfl):
+    """The compiled step (graph replays) against the eager _couple_core on
+    the card: 5 stepwise steps then a fused run of 4, regenerating every 2
+    (each regeneration recaptures), bit for bit every step's outputs, the
+    state and every ledger row; a 5-year step whose CFL binds makes the
+    budget rerun on the card."""
+    year = 365.2425 * 86400.0
+    kw = dict(dt=5 * year, dt_max=10 * year) if cfl else {}
+    a, b = graph_toy(cuda, defer_ledger=True, **kw), eager(graph_toy(cuda,
+                                                                      **kw))
+    sc = a.sheets["toy"]
+    assert sc._fusible() and not b.sheets["toy"]._fusible()
+    nE = a.gr.nE
+    for k in range(5):
+        f = torch.as_tensor(toy_forcing(nE, k), device=cuda)
+        oa, ob = a.couple({"toy": f})["toy"], b.couple({"toy": f})["toy"]
+        for key in ("fI", "fE_out", "fA_out"):
+            assert same(oa[key], ob[key]), (k, key)
+
+    def fn(t, sheet):
+        return torch.as_tensor(toy_forcing(nE, int(t // a.cfg.dt)),
+                               device=cuda)
+    oa = a.run_transient(fn, 4, fused=True)["toy"]
+    ob = b.run_transient(fn, 4)["toy"]
+    for key in ("fI", "fE_out", "fA_out"):
+        assert same(oa[key], ob[key]), key
+    for k in ("H", "enth", "t"):
+        assert torch.equal(getattr(sc.state, k),
+                           getattr(b.sheets["toy"].state, k)), k
+    assert a.ledger.to_rows() == b.ledger.to_rows()
+    assert sc.replays >= 9 and len(sc.capture_ms) >= 4
+    assert (sc.reruns > 0) == cfl and (sc.budget > 1) == cfl
+
+
+def test_graph_outputs_do_not_alias(cuda):
+    """What a compiled step returned (fields, state, the deferred stats) is
+    unchanged by the next replay and shares no memory with the graph's
+    static buffers."""
+    cp = graph_toy(cuda, defer_ledger=True)
+    sc = cp.sheets["toy"]
+    f = [torch.as_tensor(toy_forcing(cp.gr.nE, k), device=cuda)
+         for k in range(2)]
+    out = cp.couple({"toy": f[0]})["toy"]
+    state, stats = sc.state, cp.ledger._pending[-1][2]
+    kept = [out[k] for k in ("fI", "fE_out", "fA_out")] + [
+        getattr(state, k) for k in ("H", "bed", "t", "enth")] + [stats]
+    copies = [x.clone() for x in kept]
+    (g,) = sc._graphs.values()
+    static = {x.data_ptr() for x in g.inputs + g.outputs}
+    assert not static & {x.data_ptr() for x in kept}
+    cp.couple({"toy": f[1]})
+    assert sc.replays == 2
+    for x, c in zip(kept, copies):
+        assert same(x, c)
+
+
+def test_graph_capture_failure_raises(cuda):
+    """A fusible model that reads the card on the host cannot be captured:
+    couple raises and nothing runs eagerly in its place (no step booked,
+    the state as it was)."""
+    from icebin_tpu_torch.coupler.ledger import Ledger
+    from icebin_tpu_torch.models.ice_sheet import step_coupled
+
+    def reads_back(cfg, state, smb, tsurf, dt, enth_flux=None):
+        if float(smb.sum()) < 0.0:          # a host read: no capture
+            raise AssertionError("unreachable")
+        return step_coupled(cfg, state, smb, tsurf, dt, enth_flux)
+
+    reads_back.jittable = True
+    cp = graph_toy(cuda)
+    sc = cp.sheets["toy"]
+    sc.ice_step = reads_back
+    H0 = sc.state.H.clone()
+    ledger = Ledger()
+    ledger.open_step(0.0)
+    f = torch.as_tensor(toy_forcing(cp.gr.nE, 0), device=cuda)
+    with pytest.raises(RuntimeError):
+        sc.couple(0.0, f, ledger)
+    assert sc.replays == 0 and sc.steps_since_regen == 0
+    assert torch.equal(sc.state.H, H0)
+    assert ledger.to_rows() == [{"t": 0.0}]
+    # the card is still usable: the SIA step captures and runs
+    sc.ice_step = step_coupled
+    sc.couple(0.0, f, ledger)
+    assert sc.replays == 1
