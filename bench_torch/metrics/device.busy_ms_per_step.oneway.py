@@ -1,0 +1,4 @@
+"""Device ms a step (the union of the device intervals in the profiled
+segment over its steps), in the one-way cells; it moves
+oneway_steps_per_s."""
+from harness.common import busy_ms_per_step as read  # noqa: F401
