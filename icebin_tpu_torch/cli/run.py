@@ -9,6 +9,7 @@ output lines, checkpoint files and forcing (``default_rng(0)``).
     python -m icebin_tpu_torch.cli.run run.json [--forcing synthetic|zero]
         [--ice sia|dismal] [--resume ck.npz] [--fused]
         [--mesh N [--backend nccl|gloo]] [--device cuda|cpu]
+        [--spans PATH]
 
 Everything runs on ``--device`` (default cuda, and then a GPU is required;
 cpu runs the kernels' plain versions), exchange grids that the config does
@@ -19,6 +20,13 @@ rank processes (``parallel.distributed.launch``) and prints rank 0's
 report, or, started by torchrun, runs as one of its ranks.  The backend
 defaults to nccl on cuda (a card a rank) and gloo on the CPU; gloo on cuda
 lets ranks share a card.
+
+``--spans PATH`` records the run's host spans (``utils.trace``: each
+fused window and its forcing, launches and fetches, each regeneration's
+factory, pack, upload and E1vE0, TOPO, graph captures), set-up included,
+and writes them at exit to PATH as Chrome trace-event JSON (complete
+events, µs, the ice sheet under ``args.sheet``), which Perfetto and
+``chrome://tracing`` open; with ``--mesh``, rank 0's.
 """
 from __future__ import annotations
 
@@ -51,6 +59,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="process-group backend of --mesh (default nccl on "
                          "cuda, gloo on cpu)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--spans", metavar="PATH",
+                    help="write the run's host spans to PATH as Chrome "
+                         "trace-event JSON")
     return ap
 
 
@@ -109,7 +120,23 @@ def _rank(mesh, argv) -> str:
 
 
 def _run(args, mesh) -> int:
-    """The run itself, on one device or on this rank of ``mesh``."""
+    """The run itself, on one device or on this rank of ``mesh``; with
+    ``--spans``, recorded (rank 0's, on a mesh)."""
+    if not args.spans or (mesh is not None and mesh.rank != 0):
+        return _run_coupled(args, mesh)
+    import json
+
+    from icebin_tpu_torch.utils import trace
+    with trace.recording():
+        try:
+            return _run_coupled(args, mesh)
+        finally:
+            with open(args.spans, "w") as f:
+                json.dump(trace.chrome_trace(trace.drain()), f)
+
+
+def _run_coupled(args, mesh) -> int:
+    """The coupled run of ``_run``."""
     import torch
 
     from icebin_tpu_torch.coupler.checkpoint import (load_checkpoint,

@@ -35,6 +35,10 @@ Differences from the reference:
   run takes window by window is the reference's rule too, so the two
   packages dump and checkpoint on the same steps.
 * Fields reach the writer through ``.cpu().numpy()``.
+* The host work of a fused window and of a regeneration is spanned
+  (``utils.trace``: ``window``, ``window.forcing``, ``window.launch``,
+  ``window.fetch``, ``regen`` and its stages, ``regen.topo``); the
+  recorder is off unless a caller switches it on.
 * With a ``mesh`` (``parallel.mesh.IceMesh``) each rank runs its own
   ``GCMCoupler`` over its y-block of every sheet (``coupler.sharded``):
   the applies dispatch to the sharded views, sums over the ice lattice add
@@ -66,6 +70,7 @@ from icebin_tpu_torch.ops.apply import apply_view
 from icebin_tpu_torch.ops.csr import CsrView, csr_view_pair
 from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
 from icebin_tpu_torch.regrid.matrices import RegridMatrices, RegridParams
+from icebin_tpu_torch.utils.trace import span
 
 __all__ = ["CouplerConfig", "IceSheetCoupler", "GCMCoupler"]
 
@@ -152,6 +157,8 @@ class IceSheetCoupler:
         #: the compiled step: graphs of the current matrix generation by
         #: substep budget, under the key of what else they froze
         self._gen = 0
+        #: the matrix generation whose fhc and elevE are computed
+        self._topo_gen = 0
         self._graphs: Dict[int, StepGraph] = {}
         self._graph_key = None
         #: CFL substeps the compiled step starts at (the most seen)
@@ -191,10 +198,11 @@ class IceSheetCoupler:
         """(Re)build the matrices from the current ice surface (or an
         explicit elevmask); returns the PREVIOUS factory (for E1vE0)."""
         old = self.rm
-        if elevmask is None:
-            elevmask = self.elevmask()
-        self.regen_elevmask = np.asarray(elevmask)
-        self.rm = self.gr.regrid_matrices(self.sheet, elevmask)
+        with span("regen.factory", sheet=self.sheet):
+            if elevmask is None:
+                elevmask = self.elevmask()
+            self.regen_elevmask = np.asarray(elevmask)
+            self.rm = self.gr.regrid_matrices(self.sheet, elevmask)
         self._mats = {}
         self._build_mats()
         self.steps_since_regen = 0
@@ -214,12 +222,17 @@ class IceSheetCoupler:
         share = self.cfg.params.sigma is None
         for name in ("EvI", "AvI"):
             rev_name = "Iv" + name[0]
-            fwd, rev = self._pair(self.rm.matrix(name, self.cfg.params))
+            fwd, rev = self._pair(self._matrix(name))
             self._mats[name] = fwd
             if not share:
-                rev = self._pair(self.rm.matrix(rev_name, self.cfg.params),
+                rev = self._pair(self._matrix(rev_name),
                                  small_axis="cols")[0]
             self._mats[rev_name] = rev
+
+    def _matrix(self, name: str):
+        """The factory's matrix ``name`` under the coupler's params."""
+        with span("regen.factory", sheet=self.sheet):
+            return self.rm.matrix(name, self.cfg.params)
 
     def mat(self, name: str):
         """Any of the six user matrices as a device apply; AvE/EvA build
@@ -446,21 +459,35 @@ class IceSheetCoupler:
                 ledger.post(k, v)
         self.steps_since_regen += 1
         remap = self._regen_if_due(ledger)
+        fhc, elevE = self.topo_fields()
         return {"fI": fI, "fE_out": fE_out, "fA_out": fA_out,
-                "E1vE0": remap,
-                "fhc": self.rm.fhc(), "elevE": self.rm.elevE()}
+                "E1vE0": remap, "fhc": fhc, "elevE": elevE}
 
     def _regen_if_due(self, ledger: Ledger):
         """Regenerate matrices + E1vE0-remap held state when due; returns
         the E1vE0 remap or None."""
+        if self.steps_since_regen < self.cfg.regen_every:
+            return None
         remap = None
-        if self.steps_since_regen >= self.cfg.regen_every:
+        with span("regen", sheet=self.sheet):
             old_rm = self.regen_matrices()
             if old_rm is not None:
-                remap = e1ve0_matrix(old_rm, self.rm)
-                if self.held_E is not None:
-                    self._remap_held(remap, old_rm, ledger)
+                with span("regen.e1ve0", sheet=self.sheet):
+                    remap = e1ve0_matrix(old_rm, self.rm)
+                    if self.held_E is not None:
+                        self._remap_held(remap, old_rm, ledger)
         return remap
+
+    def topo_fields(self):
+        """(fhc, elevE) of the current matrix generation; the generation's
+        first call computes them (span ``regen.topo``), later ones read the
+        factory's cache."""
+        if self._topo_gen != self._gen:
+            with span("regen.topo", sheet=self.sheet):
+                self.rm.fhc()
+                self.rm.elevE()
+            self._topo_gen = self._gen
+        return self.rm.fhc(), self.rm.elevE()
 
     def couple_window(self, fE_seq: torch.Tensor):
         """K coupling steps on fixed matrices (the caller bounds K by the
@@ -477,27 +504,31 @@ class IceSheetCoupler:
     def launch_window(self, fE_seq: torch.Tensor) -> "_Window":
         """Enqueue ``couple_window``'s K steps from the current state;
         ``finish_window`` fetches them and takes them as this sheet's."""
-        if self._fusible():
-            return self._window_compiled(fE_seq, self.budget)
-        mats = self._mats_hot()
-        state, stats = self.state, []
-        for fE in fE_seq:
-            fI, fE_out, fA_out, state, s = self._couple_core(*mats, state,
-                                                             fE)
-            stats.append(s)
-        return _Window(fE_seq, None, torch.stack(stats),
-                       {"fI": fI, "fE_out": fE_out, "fA_out": fA_out},
-                       state)
+        with span("window.launch", sheet=self.sheet):
+            if self._fusible():
+                return self._window_compiled(fE_seq, self.budget)
+            mats = self._mats_hot()
+            state, stats = self.state, []
+            for fE in fE_seq:
+                fI, fE_out, fA_out, state, s = self._couple_core(
+                    *mats, state, fE)
+                stats.append(s)
+            return _Window(fE_seq, None, torch.stack(stats),
+                           {"fI": fI, "fE_out": fE_out, "fA_out": fA_out},
+                           state)
 
     def finish_window(self, w: "_Window"):
         """The window's one fetch; see ``couple_window``."""
-        host = w.rows.cpu().numpy()
+        with span("window.fetch", sheet=self.sheet):
+            host = w.rows.cpu().numpy()
         if w.budget is not None:
             n_max = self.ice_cfg.n_substeps_max
             if host[:, -2].any() and w.budget < n_max:
                 self.reruns += 1
-                return self.finish_window(self._window_compiled(
-                    w.fE_seq, min(2 * w.budget, n_max)))
+                with span("window.launch", sheet=self.sheet):
+                    w = self._window_compiled(w.fE_seq,
+                                              min(2 * w.budget, n_max))
+                return self.finish_window(w)
             self.budget = max(self.budget, int(host[:, -1].max()))
         self.state = w.state
         self.steps_since_regen += len(host)
@@ -741,29 +772,34 @@ class GCMCoupler:
         results = None
         done = 0
         while done < n_steps:
-            k = max(1, min(n_steps - done,
-                           *(sc.cfg.regen_every - sc.steps_since_regen
-                             for sc in self.sheets.values())))
-            t0 = self.time
-            stats, results, fE_last, pending = {}, {}, {}, {}
-            for name, sc in self.sheets.items():
-                fE_seq = torch.stack([forcing_fn(t0 + i * cfg.dt, name)
-                                      for i in range(k)])
-                fE_last[name] = fE_seq[-1]
-                pending[name] = sc.launch_window(fE_seq)
-            for name, sc in self.sheets.items():
-                stats[name], results[name] = sc.finish_window(pending[name])
-            for i in range(k):
-                self.ledger.open_step(t0 + i * cfg.dt)
-                for name in self.sheets:
-                    for j, key in enumerate(IceSheetCoupler.STAT_KEYS):
-                        self.ledger.post(f"{name}.{key}", stats[name][i, j])
-            self.time += k * cfg.dt
-            done += k
-            for name, sc in self.sheets.items():
-                results[name]["E1vE0"] = sc._regen_if_due(self.ledger)
-                results[name]["fhc"] = sc.rm.fhc()
-                results[name]["elevE"] = sc.rm.elevE()
-            if self.writer is not None:
-                self._dump(fE_last, results)
+            with span("window"):
+                k = max(1, min(n_steps - done,
+                               *(sc.cfg.regen_every - sc.steps_since_regen
+                                 for sc in self.sheets.values())))
+                t0 = self.time
+                stats, results, fE_last, pending = {}, {}, {}, {}
+                for name, sc in self.sheets.items():
+                    with span("window.forcing", sheet=name):
+                        fE_seq = torch.stack([forcing_fn(t0 + i * cfg.dt,
+                                                         name)
+                                              for i in range(k)])
+                    fE_last[name] = fE_seq[-1]
+                    pending[name] = sc.launch_window(fE_seq)
+                for name, sc in self.sheets.items():
+                    stats[name], results[name] = sc.finish_window(
+                        pending[name])
+                for i in range(k):
+                    self.ledger.open_step(t0 + i * cfg.dt)
+                    for name in self.sheets:
+                        for j, key in enumerate(IceSheetCoupler.STAT_KEYS):
+                            self.ledger.post(f"{name}.{key}",
+                                             stats[name][i, j])
+                self.time += k * cfg.dt
+                done += k
+                for name, sc in self.sheets.items():
+                    results[name]["E1vE0"] = sc._regen_if_due(self.ledger)
+                    results[name]["fhc"], results[name]["elevE"] = \
+                        sc.topo_fields()
+                if self.writer is not None:
+                    self._dump(fE_last, results)
         return results

@@ -29,6 +29,7 @@ import time
 import torch
 
 from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+from icebin_tpu_torch.utils.trace import span
 
 __all__ = ["StepGraph"]
 
@@ -49,7 +50,8 @@ class StepGraph:
         self.launches = {}
         self.capture_ms = None
         if self.inputs[0].device.type == "cuda":
-            self._capture(self.inputs[0].device)
+            with span("step.capture"):
+                self._capture(self.inputs[0].device)
 
     def _capture(self, dev) -> None:
         t0 = time.perf_counter()

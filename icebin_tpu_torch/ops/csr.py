@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from icebin_tpu_torch.utils.trace import span
+
 __all__ = ["Csr", "CsrPack", "CsrView", "csr_from_coo", "csr_pack",
            "csr_view_pair"]
 
@@ -63,26 +65,27 @@ class Csr:
 
 def csr_from_coo(dst, src, vals, n_dst: int, n_src: int, w_dst, *,
                  device) -> Csr:
-    """Pack COO entries (dst, src, vals) sorted by (dst, src)."""
-    dst = np.asarray(dst, np.int64)
-    src = np.asarray(src, np.int64)
-    if len(vals) > _I32_MAX or max(n_dst, n_src) > _I32_MAX:
-        raise ValueError("matrix too large for int32 CSR indices")
-    order = np.lexsort((src, dst))
-    rowptr = np.zeros(n_dst + 1, np.int64)
-    np.cumsum(np.bincount(dst, minlength=n_dst), out=rowptr[1:])
-    w = np.asarray(w_dst, np.float64)
-    winv = np.where(w != 0, 1.0 / np.where(w != 0, w, 1.0), 0.0)
-
-    def put(a, dt):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device)
-
-    return Csr(rowptr=put(rowptr, torch.int32),
-               cols=put(src[order], torch.int32),
-               vals=put(np.asarray(vals, np.float64)[order], torch.float32),
-               winv=put(winv, torch.float32),
-               n_dst=int(n_dst), n_src=int(n_src))
+    """Pack COO entries (dst, src, vals) sorted by (dst, src): the host
+    arrays first (span ``regen.pack``), then their copies to ``device`` and
+    the live rows derived there (``regen.upload``)."""
+    with span("regen.pack"):
+        dst = np.asarray(dst, np.int64)
+        src = np.asarray(src, np.int64)
+        if len(vals) > _I32_MAX or max(n_dst, n_src) > _I32_MAX:
+            raise ValueError("matrix too large for int32 CSR indices")
+        order = np.lexsort((src, dst))
+        rowptr = np.zeros(n_dst + 1, np.int64)
+        np.cumsum(np.bincount(dst, minlength=n_dst), out=rowptr[1:])
+        w = np.asarray(w_dst, np.float64)
+        winv = np.where(w != 0, 1.0 / np.where(w != 0, w, 1.0), 0.0)
+        host = (rowptr.astype(np.int32), src[order].astype(np.int32),
+                np.asarray(vals, np.float64)[order].astype(np.float32),
+                winv.astype(np.float32))
+    with span("regen.upload"):
+        rowptr, cols, vals, winv = (torch.from_numpy(a).to(device)
+                                    for a in host)
+        return Csr(rowptr=rowptr, cols=cols, vals=vals, winv=winv,
+                   n_dst=int(n_dst), n_src=int(n_src))
 
 
 @dataclasses.dataclass
@@ -122,12 +125,14 @@ def csr_pack(M, small_axis: str = "rows", nv: int = 16, *,
     else:
         raise ValueError(f"small_axis must be 'rows' or 'cols', "
                          f"got {small_axis!r}")
-    return CsrPack(
-        small=csr_from_coo(s, i, M.vals, nsmall, nice, wS, device=device),
-        ice=csr_from_coo(i, s, M.vals, nice, nsmall, wI, device=device),
-        wS=torch.as_tensor(np.asarray(wS, np.float64), device=device),
-        wI=torch.as_tensor(np.asarray(wI, np.float64), device=device),
-        nv=int(nv))
+    small = csr_from_coo(s, i, M.vals, nsmall, nice, wS, device=device)
+    ice = csr_from_coo(i, s, M.vals, nice, nsmall, wI, device=device)
+    with span("regen.upload"):
+        return CsrPack(
+            small=small, ice=ice,
+            wS=torch.as_tensor(np.asarray(wS, np.float64), device=device),
+            wI=torch.as_tensor(np.asarray(wI, np.float64), device=device),
+            nv=int(nv))
 
 
 @dataclasses.dataclass
