@@ -168,7 +168,20 @@ Phases, each of which exits non-zero on failure:
            bit; config #5's two sheets, 4 steps and a window of 2, bit for
            bit, one graph and budget a sheet.  Step ms compiled and eager
            (medians of the steps that neither capture nor regenerate),
-           the windows' ms, capture ms, replays and reruns.
+           the windows' ms, capture ms, replays and reruns;
+19. regen  regeneration on the card (regrid/device.py) against the host
+           factory, at config #5 (Antarctica's 2.9 M exchange cells beside
+           Greenland): for each sheet a coupler of each path regenerates
+           REGEN_TIMES times from alternating masks (a seeded fifth of the
+           ice removed and the surface raised, then the dome again) with
+           two held fields; the packs of EvI/AvI (both CSRs, weights), the
+           E1vE0 returned, the held state, the ledger's held-mass rows,
+           fhc and elevE bit for bit; each regeneration's ms on both paths
+           and the path counters; then the ordered segment-sum kernel
+           (csrc/segsum.cu) on Antarctica's EvI row and column sums, bit
+           for bit its plain version, timed beside it and
+           torch.segment_reduce.  The kernel's launch count is the
+           regenerations' own (set to 0 before them), not the timing's.
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -2404,6 +2417,142 @@ def phase_compiled(gr3, gr5, device):
     say(f"compiled: phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 19: regeneration on the card ------------------------------------
+
+REGEN_TIMES = 4           # regenerations a sheet and path (alternating masks)
+
+
+def regen_state(st, seed):
+    """``st`` with the ice removed from a seeded fifth of its iced cells
+    and 37.5 m added to the rest: a retreat and a change of every class
+    split."""
+    import torch
+    from icebin_tpu_torch.models.ice_sheet import IceSheetState
+    iced = torch.nonzero(st.H.reshape(-1) > 1.0).flatten().cpu().numpy()
+    rng = np.random.default_rng(seed)
+    H = st.H.clone().reshape(-1)
+    H[iced] += 37.5
+    H[torch.as_tensor(rng.choice(iced, len(iced) // 5, replace=False),
+                      device=H.device)] = 0.0
+    return IceSheetState(H=H.reshape(st.H.shape), bed=st.bed, t=st.t,
+                         enth=st.enth)
+
+
+def same_pack(a, b, what):
+    for side in ("small", "ice"):
+        x, y = getattr(a, side), getattr(b, side)
+        for k in ("rowptr", "cols", "vals", "winv", "live"):
+            u, v = getattr(x, k), getattr(y, k)
+            check(u.dtype == v.dtype and (same(u, v) if u.is_floating_point()
+                                          else bool((u == v).all())),
+                  f"regen: {what} {side} {k} not bit for bit the host's")
+        check(x.n_live == y.n_live, f"regen: {what} {side} n_live")
+    for k in ("wS", "wI"):
+        check(same(getattr(a, k), getattr(b, k)),
+              f"regen: {what} {k} not bit for bit the host's")
+
+
+def phase_regen(gr, device):
+    """Regeneration on the card against the host factory at config #5, and
+    the segment-sum kernel (see the module docstring, phase 19)."""
+    import torch
+    from icebin_tpu_torch import CouplerConfig
+    from icebin_tpu_torch.coupler.coupler import IceSheetCoupler
+    from icebin_tpu_torch.coupler.ledger import Ledger
+    from icebin_tpu_torch.ops.segsum import segment_sum, segment_sum_ref
+
+    class HostRegen(IceSheetCoupler):
+        def _regen_on_device(self):
+            return False
+
+    cfg = CouplerConfig(dt=DT, regen_every=1, defer_ledger=True)
+    held = np.random.default_rng(19).uniform(0.5, 2.0, (2, gr.nE))
+    segment_sum.launches = 0
+    for name in SHEETS:
+        runs = {}
+        for cls in (IceSheetCoupler, HostRegen):
+            sc, init_ms = wall_ms(lambda: cls(gr, name, cfg, device=device))
+            sc.set_held_state(held)
+            sc.topo_fields()
+            states = [regen_state(sc.state, 19), sc.state]
+            ledger, ms, out = Ledger(), [], []
+            for k in range(REGEN_TIMES):
+                sc.state = states[k % 2]
+                sc.steps_since_regen = 1
+                ledger.open_step(float(k))
+                remap, t = wall_ms(lambda: sc._regen_if_due(ledger))
+                (fhc, elevE), t_topo = wall_ms(sc.topo_fields)
+                ms.append((t, t_topo))
+                out.append((remap, fhc, elevE, sc.held_E.copy(),
+                            {n: sc.mat(n).pack for n in ("EvI", "AvI")}))
+            runs[cls] = sc, init_ms, ms, out, ledger.to_rows()
+        (dv, dinit, dms, dout, drows), (hs, hinit, hms, hout, hrows) = (
+            runs[IceSheetCoupler], runs[HostRegen])
+        check((dv.regens_device, dv.regens_host) == (1 + REGEN_TIMES, 0),
+              f"regen: {name} device counters {dv.regens_device}, "
+              f"{dv.regens_host}")
+        check((hs.regens_device, hs.regens_host) == (0, 1 + REGEN_TIMES),
+              f"regen: {name} host counters")
+        check(drows == hrows, f"regen: {name} held-mass rows differ")
+        for k, (d, h) in enumerate(zip(dout, hout)):
+            for a, b, what in ((d[0].rows, h[0].rows, "E1vE0 rows"),
+                               (d[0].cols, h[0].cols, "E1vE0 cols"),
+                               (d[0].vals, h[0].vals, "E1vE0 vals"),
+                               (d[1], h[1], "fhc"), (d[2], h[2], "elevE"),
+                               (d[3], h[3], "held state")):
+                check(a.dtype == b.dtype and np.array_equal(
+                    np.ascontiguousarray(a).view(np.uint8),
+                    np.ascontiguousarray(b).view(np.uint8)),
+                      f"regen: {name} {what} of regeneration {k} not bit "
+                      f"for bit the host's")
+            for m in ("EvI", "AvI"):
+                same_pack(d[4][m], h[4][m], f"{name} {m} ({k})")
+        say(f"regen {name}: {dv.regen.xd.iA.numel()} exchange cells; set-up "
+            f"(upload and the first matrices) device {dinit:.1f} ms, host "
+            f"{hinit:.1f} ms; a regeneration (factory, packs, E1vE0, held "
+            f"remap) device "
+            f"{', '.join(f'{a:.1f}' for a, _ in dms)} ms, host "
+            f"{', '.join(f'{a:.1f}' for a, _ in hms)} ms; TOPO device "
+            f"{', '.join(f'{b:.1f}' for _, b in dms)} ms, host "
+            f"{', '.join(f'{b:.1f}' for _, b in hms)} ms; E1vE0 "
+            f"{dout[0][0].nnz} nnz; bit for bit")
+    # the count the kernels line reports: the regenerations' own launches
+    launches = segment_sum.launches
+    check(launches > 0, "regen: segment_sum was not launched")
+
+    # the kernel on Antarctica's EvI: row sums (wS: 64,800 long segments)
+    # and column sums (wI: 1.25 M short ones)
+    rows, cols, vals, shape = dv.rm.coo("EvI", cfg.params)
+    order = torch.sort(cols.to(torch.int32), stable=True).indices
+    cases = {"wS": (vals, torch.searchsorted(
+                 rows, torch.arange(shape[0] + 1, device=device))),
+             "wI": (vals[order], torch.searchsorted(
+                 cols[order], torch.arange(shape[1] + 1, device=device)))}
+    res = {"launches": launches, "max_abs_err": 0.0}
+    timed = {}
+    for tag, (v, ptr) in cases.items():
+        got = segment_sum(v, ptr)
+        want, plain = wall_ms(lambda: segment_sum_ref(v.cpu(), ptr.cpu()))
+        check(same(got.cpu(), want),
+              f"regen: segment_sum ({tag}) not bit for bit its plain version")
+        lens = ptr[1:] - ptr[:-1]
+        ms = time_ms(lambda: segment_sum(v, ptr), 20)
+        lib = time_ms(lambda: torch.segment_reduce(v, "sum", lengths=lens),
+                      20)
+        b, by = bound(8 * v.numel() + 16 * (len(ptr) - 1) + 8, 0)
+        timed[tag] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                          bound_by=by, n=v.numel(), segments=len(ptr) - 1,
+                          longest=int(lens.max()))
+        say(f"regen segment_sum antarctica EvI {tag}: {v.numel()} values in "
+            f"{len(ptr) - 1} segments (longest {int(lens.max())}), "
+            f"{ms:.4f} ms, bound {b * 1e3:.1f} us ({by}), plain {plain:.1f} "
+            f"ms, torch.segment_reduce {lib:.4f} ms")
+    res.update(timed["wS"], param="antarctica EvI wS (wI: "
+               f"{timed['wI']['ms']:.4f} ms, bound "
+               f"{timed['wI']['bound_ms'] * 1e3:.1f} us)")
+    return res
+
+
 def main():
     global CARD
     import torch
@@ -2456,10 +2605,12 @@ def main():
                step_ms)
     phase_topo(device, counters)
     phase_compiled(cp.gr, ms.gr, device)
+    regen = phase_regen(ms.gr, device)
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]
     launches["stream_reduce"] = roof["launches"]
+    launches["segment_sum"] = regen["launches"]
     for name, res in (*floors.items(), *probes.items(), *probes1.items(),
                       *smemfold.items()):
         launches[name] = res["launches"]
@@ -2504,6 +2655,9 @@ def main():
             "tools/probe_floor.py:84", floors["spmm_floor_ice"]),
         row("tile_prods", "icebin_tpu_torch/csrc/prods.cu",
             "tools/probe_prods_scale.py:69", floors["tile_prods"]),
+        dict(row("segment_sum", "icebin_tpu_torch/csrc/segsum.cu",
+                 "none: regeneration is host numpy in the JAX package",
+                 regen), param=regen["param"]),
     ] + [dict(row(name, "icebin_tpu_torch/csrc/k2probe.cu", site,
                   probes[name]), param=probes[name]["param"])
          for name, site in K2PROBE_SITES.items()] + [

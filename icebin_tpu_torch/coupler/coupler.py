@@ -5,8 +5,8 @@ with fused unit conversion -> f64 mass repair of the extensive fields ->
 SIA ice step (mass and enthalpy columns) -> EvI/AvI harvest, each repaired
 -> a 15-entry f64 ledger row.  Every ``regen_every`` steps the matrices are
 rebuilt from the evolved surface and GCM-held EC state is remapped through
-E1vE0.  Matrix construction, E1vE0 and unit contracts are the port's own
-copies of the reference's host modules.
+E1vE0.  Unit contracts, and the host matrix factory and E1vE0, are the
+port's own copies of the reference's host modules.
 
 Differences from the reference:
 
@@ -35,6 +35,14 @@ Differences from the reference:
   run takes window by window is the reference's rule too, so the two
   packages dump and checkpoint on the same steps.
 * Fields reach the writer through ``.cpu().numpy()``.
+* Regeneration runs on the device (``regrid.device``) for a single-device
+  sheet without sigma smoothing: the sheet's exchange grid is uploaded
+  once, and every regeneration assembles the EvI/AvI CSRs, E1vE0 and the
+  elevation-class measures there from the ice state's elevation mask,
+  bit for bit the host factory's.  With sigma (a scipy composition) and
+  on a mesh rank (``coupler.sharded``, blocks cut from ``rm.matrix``) the
+  host factory builds them, as in the reference.  ``regens_device`` and
+  ``regens_host`` count the matrix builds by path.
 * The host work of a fused window and of a regeneration is spanned
   (``utils.trace``: ``window``, ``window.forcing``, ``window.launch``,
   ``window.fetch``, ``regen`` and its stages, ``regen.topo``); the
@@ -67,7 +75,10 @@ from icebin_tpu_torch.models.ice_sheet import (RHO_ICE, IceFluxes,
                                                advance, init_state,
                                                step_coupled)
 from icebin_tpu_torch.ops.apply import apply_view
-from icebin_tpu_torch.ops.csr import CsrView, csr_view_pair
+from icebin_tpu_torch.ops.csr import CsrView, csr_pack_sorted, csr_view_pair
+from icebin_tpu_torch.regrid.device import (DeviceExchange,
+                                            DeviceRegridMatrices,
+                                            e1ve0_device)
 from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
 from icebin_tpu_torch.regrid.matrices import RegridMatrices, RegridParams
 from icebin_tpu_torch.utils.trace import span
@@ -97,6 +108,70 @@ class CouplerConfig:
     #: True = ``couple`` books its ledger row without a device->host sync
     #: (``Ledger.post_deferred``); the books are identical
     defer_ledger: bool = False
+
+
+class HostRegen:
+    """How a coupler builds its matrices on the host: the host factory
+    (``RegridMatrices``), ``csr_pack`` and ``e1ve0_matrix``.  Taken with
+    sigma smoothing and by a mesh rank."""
+
+    path = "host"
+
+    def __init__(self, sc: "IceSheetCoupler"):
+        self.sc = sc
+
+    def factory(self, elevmask):
+        """(the mask on the host, the factory built from it)."""
+        if isinstance(elevmask, torch.Tensor):
+            elevmask = elevmask.cpu().numpy()
+        elevmask = np.asarray(elevmask)
+        return elevmask, self.sc.gr.regrid_matrices(self.sc.sheet, elevmask)
+
+    def pair(self, rm, name: str, params: RegridParams, small_axis="rows"):
+        """Device views over one pack of ``rm``'s matrix ``name``:
+        (forward, reverse) with ``small_axis`` its rows, else (reverse,
+        forward)."""
+        with span("regen.factory", sheet=self.sc.sheet):
+            M = rm.matrix(name, params)
+        return csr_view_pair(M, nv=self.sc.cfg.nv, small_axis=small_axis,
+                             device=self.sc.device)
+
+    @staticmethod
+    def e1ve0(old, new):
+        return e1ve0_matrix(old, new)
+
+
+class DeviceRegen:
+    """How a coupler builds its matrices on the device (``regrid.device``):
+    the sheet's exchange grid uploaded once, here (span ``regen.upload``),
+    ``DeviceRegridMatrices``, ``csr_pack_sorted`` and ``e1ve0_device``.
+    Taken on one device without sigma smoothing."""
+
+    path = "device"
+
+    def __init__(self, sc: "IceSheetCoupler"):
+        self.sc = sc
+        with span("regen.upload", sheet=sc.sheet):
+            self.xd = DeviceExchange(sc.gr, sc.sheet, sc.device)
+
+    def factory(self, elevmask):
+        """(the mask as given, the factory built from it)."""
+        if not isinstance(elevmask, torch.Tensor):
+            elevmask = np.asarray(elevmask)
+        return elevmask, DeviceRegridMatrices(self.xd, elevmask)
+
+    def pair(self, rm, name: str, params: RegridParams):
+        """(forward, reverse) views over one pack of ``rm``'s matrix
+        ``name``, its rows the small side, packed on the device."""
+        with span("regen.factory", sheet=self.sc.sheet):
+            rows, cols, vals, shape = rm.coo(name, params)
+        pack = csr_pack_sorted(rows, cols, vals, shape, nv=self.sc.cfg.nv)
+        return CsrView(pack, transposed=False), CsrView(pack,
+                                                        transposed=True)
+
+    @staticmethod
+    def e1ve0(old, new):
+        return e1ve0_device(old, new)
 
 
 class IceSheetCoupler:
@@ -144,7 +219,9 @@ class IceSheetCoupler:
         self._conv: Dict[torch.dtype, tuple] = {}
         self._conversion(torch.float32)
         self.contract_out = contract_out or ice_modele_output_contract()
-        self.rm: Optional[RegridMatrices] = None
+        #: the current matrix factory (``RegridMatrices`` or
+        #: ``DeviceRegridMatrices``)
+        self.rm = None
         self._mats: Dict[str, object] = {}
         self.steps_since_regen = 0
         #: GCM-held extensive EC state means, remapped through E1vE0 at
@@ -161,6 +238,11 @@ class IceSheetCoupler:
         self._topo_gen = 0
         self._graphs: Dict[int, StepGraph] = {}
         self._graph_key = None
+        #: on the card, the captures' side stream, and by budget the graph
+        #: of the last generation, released, whose memory pool the next
+        #: capture at that budget takes over (``StepGraph``'s memory note)
+        self._capture_stream = None
+        self._retired: Dict[int, StepGraph] = {}
         #: CFL substeps the compiled step starts at (the most seen)
         self.budget = 1
         #: compiled-step counters: graph replays, budget reruns (steps or
@@ -168,6 +250,12 @@ class IceSheetCoupler:
         self.replays = 0
         self.reruns = 0
         self.capture_ms: list = []
+        #: matrix builds (the first, resumes and regenerations) by path
+        self.regens_device = 0
+        self.regens_host = 0
+        #: how matrices are built, decided once
+        self.regen = (DeviceRegen(self) if self._regen_on_device()
+                      else HostRegen(self))
         self.regen_matrices()
 
     def place_state(self, state: IceSheetState) -> None:
@@ -191,18 +279,36 @@ class IceSheetCoupler:
 
     # -- matrix lifecycle --------------------------------------------------
 
-    def elevmask(self) -> np.ndarray:
-        return self.state.elevmask(self.cfg.min_thickness).cpu().numpy()
+    def elevmask(self) -> torch.Tensor:
+        """The whole lattice's elevation mask, where the state lies."""
+        return self.state.elevmask(self.cfg.min_thickness)
 
-    def regen_matrices(self, elevmask=None) -> Optional[RegridMatrices]:
+    @property
+    def regen_elevmask(self) -> np.ndarray:
+        """The elevation mask the current matrices were built from, on the
+        host (a device mask is fetched at the first read)."""
+        if isinstance(self._regen_elevmask, torch.Tensor):
+            self._regen_elevmask = self._regen_elevmask.cpu().numpy()
+        return self._regen_elevmask
+
+    def _regen_on_device(self) -> bool:
+        """Whether matrices are built on the device (``DeviceRegen``, else
+        ``HostRegen``), decided once: without sigma smoothing, whose
+        composition is the host factory's scipy product.  A mesh rank
+        builds on the host (its override)."""
+        return self.cfg.params.sigma is None
+
+    def regen_matrices(self, elevmask=None):
         """(Re)build the matrices from the current ice surface (or an
         explicit elevmask); returns the PREVIOUS factory (for E1vE0)."""
         old = self.rm
         with span("regen.factory", sheet=self.sheet):
-            if elevmask is None:
-                elevmask = self.elevmask()
-            self.regen_elevmask = np.asarray(elevmask)
-            self.rm = self.gr.regrid_matrices(self.sheet, elevmask)
+            self._regen_elevmask, self.rm = self.regen.factory(
+                self.elevmask() if elevmask is None else elevmask)
+        if self.regen.path == "device":
+            self.regens_device += 1
+        else:
+            self.regens_host += 1
         self._mats = {}
         self._build_mats()
         self.steps_since_regen = 0
@@ -210,37 +316,27 @@ class IceSheetCoupler:
         self._drop_graphs()
         return old
 
-    def _pair(self, M, small_axis="rows"):
-        return csr_view_pair(M, nv=self.cfg.nv, small_axis=small_axis,
-                             device=self.device)
-
     def _build_mats(self) -> None:
         """EvI/IvE/AvI/IvA device applies.  Unsmoothed, IvE (IvA) is the
         exact transpose of EvI (AvI), so one pack serves both; with sigma
-        smoothing the reverse direction is packed from its own canonical
-        matrix (S is asymmetric)."""
-        share = self.cfg.params.sigma is None
+        smoothing (host factory) the reverse direction is packed from its
+        own canonical matrix (S is asymmetric)."""
         for name in ("EvI", "AvI"):
             rev_name = "Iv" + name[0]
-            fwd, rev = self._pair(self._matrix(name))
+            fwd, rev = self.regen.pair(self.rm, name, self.cfg.params)
             self._mats[name] = fwd
-            if not share:
-                rev = self._pair(self._matrix(rev_name),
-                                 small_axis="cols")[0]
+            if self.cfg.params.sigma is not None:
+                rev = self.regen.pair(self.rm, rev_name, self.cfg.params,
+                                      small_axis="cols")[0]
             self._mats[rev_name] = rev
-
-    def _matrix(self, name: str):
-        """The factory's matrix ``name`` under the coupler's params."""
-        with span("regen.factory", sheet=self.sheet):
-            return self.rm.matrix(name, self.cfg.params)
 
     def mat(self, name: str):
         """Any of the six user matrices as a device apply; AvE/EvA build
         lazily and drop at each regeneration like the rest."""
         if name not in self._mats and name in ("AvE", "EvA"):
-            M = self.rm.matrix("AvE", dataclasses.replace(self.cfg.params,
-                                                          sigma=None))
-            self._mats["AvE"], self._mats["EvA"] = self._pair(M)
+            self._mats["AvE"], self._mats["EvA"] = self.regen.pair(
+                self.rm, "AvE",
+                dataclasses.replace(self.cfg.params, sigma=None))
         return self._mats[name]
 
     def apply(self, name: str, f, var_factor=None, var_offset=None):
@@ -469,11 +565,11 @@ class IceSheetCoupler:
         if self.steps_since_regen < self.cfg.regen_every:
             return None
         remap = None
-        with span("regen", sheet=self.sheet):
+        with span("regen", sheet=self.sheet, path=self.regen.path):
             old_rm = self.regen_matrices()
             if old_rm is not None:
                 with span("regen.e1ve0", sheet=self.sheet):
-                    remap = e1ve0_matrix(old_rm, self.rm)
+                    remap = self.regen.e1ve0(old_rm, self.rm)
                     if self.held_E is not None:
                         self._remap_held(remap, old_rm, ledger)
         return remap
@@ -573,9 +669,25 @@ class IceSheetCoupler:
         return fn
 
     def _drop_graphs(self) -> None:
-        for g in self._graphs.values():
-            g.reset()
+        """Drop the current graphs: each is released and kept, by budget,
+        for the next capture at that budget to replace (``_capture``)."""
+        for substeps, g in self._graphs.items():
+            g.release()
+            old = self._retired.pop(substeps, None)
+            if old is not None:
+                old.reset()
+            self._retired[substeps] = g
         self._graphs = {}
+
+    def _capture(self, substeps: int, inputs) -> StepGraph:
+        """A new graph of the step at budget ``substeps``; on the card it is
+        captured on the coupler's side stream into the memory pool of the
+        last generation's graph at that budget, which it replaces."""
+        if self._capture_stream is None and inputs[0].is_cuda:
+            self._capture_stream = torch.cuda.Stream(inputs[0].device)
+        return StepGraph(self._step_fn(substeps), inputs,
+                         stream=self._capture_stream,
+                         replaces=self._retired.pop(substeps, None))
 
     def _run_compiled(self, substeps: int, state, fE_in):
         """One run of the compiled step at budget ``substeps`` (captured at
@@ -590,8 +702,7 @@ class IceSheetCoupler:
             self._graph_key = key
         g = self._graphs.get(substeps)
         if g is None:
-            g = self._graphs[substeps] = StepGraph(self._step_fn(substeps),
-                                                   inputs)
+            g = self._graphs[substeps] = self._capture(substeps, inputs)
             if g.capture_ms is not None:
                 self.capture_ms.append(g.capture_ms)
         out = g.run(inputs)

@@ -124,16 +124,20 @@ class MeshIceSheetCoupler(IceSheetCoupler):
                        high=(min((d + 1) * self.ny_l, self.ny_real), nx))
                 for d in range(self.mesh.size)]
 
-    def elevmask(self) -> np.ndarray:
+    def elevmask(self) -> torch.Tensor:
         """The whole real lattice's elevmask, gathered (``:139-152``):
         every rank regenerates the same matrices from it."""
-        em = self.state.elevmask(self.cfg.min_thickness)
-        return self.gather_ice(em).cpu().numpy()
+        return self.gather_ice(self.state.elevmask(self.cfg.min_thickness))
 
     def _across(self, *partials):
         return self.mesh.sum_ranks(*partials)
 
     # -- matrices -------------------------------------------------------------
+
+    def _regen_on_device(self) -> bool:
+        """A rank cuts its blocks from the host factory's ``rm.matrix``:
+        its matrices are built on the host (``HostRegen``)."""
+        return False
 
     def _build_mats(self) -> None:
         """EvI/IvE and AvI/IvA as sharded view pairs over the rank's cells

@@ -16,6 +16,16 @@ out first.
 A capture that fails raises: nothing falls back to running ``fn``
 eagerly on the card.
 
+Memory: on the card the caller gives the side stream (``stream``), and a
+caller that captures again and again (a coupler, once a matrix
+generation) gives the same one every time, so each warm-up reuses the
+blocks the last one freed on it.  It also names the graph the new one
+replaces (``replaces``, ``release``d: its static buffers freed, its graph
+kept): the new graph is captured into that graph's memory pool, whose
+blocks it takes over, and the old graph is then reset.  With a fresh
+stream and pool each time the card's reserved memory grows by both every
+capture, until a capture (which may not free cached memory) runs out.
+
 The regrid wrappers count their launches in Python (``.launches`` of
 ``ops.apply.spmm_dest_small`` and ``spmm_dest_ice``).  Under capture that
 code runs once, so the counts a capture adds are taken back and recorded as
@@ -42,28 +52,40 @@ class StepGraph:
     docstring); ``capture_ms`` is the host time of the warm-up and capture
     (None on the CPU, where ``graph`` is None)."""
 
-    def __init__(self, fn, inputs):
+    def __init__(self, fn, inputs, *, stream=None, replaces=None):
+        """On the card the warm-up and the capture run on ``stream``, and
+        the graph allocates from the pool of ``replaces`` (a released
+        ``StepGraph``, reset once this one is captured; a pool of its own
+        if None)."""
         self.fn = fn
         self.inputs = tuple(x.clone() for x in inputs)
         self.outputs = None
         self.graph = None
         self.launches = {}
         self.capture_ms = None
-        if self.inputs[0].device.type == "cuda":
-            with span("step.capture"):
-                self._capture(self.inputs[0].device)
+        try:
+            if self.inputs[0].device.type == "cuda":
+                if stream is None:
+                    raise ValueError("a capture on the card needs a side "
+                                     "stream")
+                old = None if replaces is None else replaces.graph
+                with span("step.capture"):
+                    self._capture(self.inputs[0].device, stream,
+                                  None if old is None else old.pool())
+        finally:
+            if replaces is not None:
+                replaces.reset()
 
-    def _capture(self, dev) -> None:
+    def _capture(self, dev, side, pool) -> None:
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
             self.fn(*self.inputs)                  # the warm-up
             before = [k.launches for k in COUNTED]
             try:
-                graph.capture_begin()
+                graph.capture_begin(pool=pool)
                 try:
                     self.outputs = tuple(self.fn(*self.inputs))
                 finally:
@@ -97,6 +119,12 @@ class StepGraph:
             for buf, o in zip(self.outputs, out):
                 buf.copy_(o)
         return self.outputs
+
+    def release(self) -> None:
+        """Free the static buffers but keep the graph, so that its pool's
+        blocks are free for the graph that ``replaces`` it; the graph is
+        not run again, and ``reset`` frees it."""
+        self.fn = self.inputs = self.outputs = None
 
     def reset(self) -> None:
         """Free the graph, its pool and the static buffers."""

@@ -12,6 +12,12 @@ atomic-free summation order.  Each CSR also holds the list of its live
 (non-empty) rows, longest first, which the dest-small kernel launches over;
 it is derived from ``rowptr`` whenever a ``Csr`` is made, so a CSR made
 from another (``dataclasses.replace``) gets its own.
+
+Two ways in: ``csr_pack`` packs a host ``WeightedMatrix`` (host arrays,
+then copies), and ``csr_pack_sorted`` packs a deduplicated COO already
+on the device, sorted by (row, col), without leaving it: the same CSRs
+and weights bit for bit, the weights summed by ``ops.segsum`` in the
+order ``np.bincount`` sums them.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 from icebin_tpu_torch.utils.trace import span
 
 __all__ = ["Csr", "CsrPack", "CsrView", "csr_from_coo", "csr_pack",
-           "csr_view_pair"]
+           "csr_pack_sorted", "csr_view_pair"]
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -133,6 +139,48 @@ def csr_pack(M, small_axis: str = "rows", nv: int = 16, *,
             wS=torch.as_tensor(np.asarray(wS, np.float64), device=device),
             wI=torch.as_tensor(np.asarray(wI, np.float64), device=device),
             nv=int(nv))
+
+
+def _winv(w: torch.Tensor) -> torch.Tensor:
+    """f32 ``1/w`` computed in f64, 0 where w = 0 (``csr_from_coo``'s)."""
+    nz = w != 0
+    return torch.where(nz, 1.0 / torch.where(nz, w, 1.0), 0.0).to(
+        torch.float32)
+
+
+def csr_pack_sorted(rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, shape, nv: int = 16) -> CsrPack:
+    """``csr_pack(M)`` (rows the small side) of the matrix whose entries
+    are the deduplicated int64 ``rows``, ``cols`` and f64 ``vals``, sorted
+    by (row, col), built where they lie (span ``regen.pack``).  The small
+    CSR is the entries as they are; the ice CSR is a stable sort by
+    column, which leaves each column's rows ascending, as ``np.lexsort``
+    orders them; ``wS`` and ``wI`` sum each row's and column's values in
+    the order ``np.bincount`` does."""
+    from icebin_tpu_torch.ops.segsum import segment_sum
+    nsmall, nice = (int(n) for n in shape)
+    if len(vals) > _I32_MAX or max(nsmall, nice) > _I32_MAX:
+        raise ValueError("matrix too large for int32 CSR indices")
+    with span("regen.pack"):
+        dev = vals.device
+        ptr_s = torch.searchsorted(rows, torch.arange(nsmall + 1,
+                                                      device=dev))
+        wS = segment_sum(vals, ptr_s)
+        order = torch.sort(cols.to(torch.int32), stable=True).indices
+        cols_sorted = cols[order]
+        ptr_i = torch.searchsorted(cols_sorted, torch.arange(nice + 1,
+                                                             device=dev))
+        vals_i = vals[order]
+        wI = segment_sum(vals_i, ptr_i)
+        small = Csr(rowptr=ptr_s.to(torch.int32),
+                    cols=cols.to(torch.int32),
+                    vals=vals.to(torch.float32), winv=_winv(wS),
+                    n_dst=nsmall, n_src=nice)
+        ice = Csr(rowptr=ptr_i.to(torch.int32),
+                  cols=rows[order].to(torch.int32),
+                  vals=vals_i.to(torch.float32), winv=_winv(wI),
+                  n_dst=nice, n_src=nsmall)
+        return CsrPack(small=small, ice=ice, wS=wS, wI=wI, nv=int(nv))
 
 
 @dataclasses.dataclass

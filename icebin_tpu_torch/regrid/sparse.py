@@ -1,5 +1,8 @@
 """The port's own copy of ``icebin_tpu/regrid/sparse.py``; it imports
-nothing of the reference package.
+nothing of the reference package.  One addition:
+``WeightedMatrix.from_sorted`` takes COO that is already ``coo_dedup``'s
+output (regeneration on the card deduplicates there) without sorting it
+again.
 
 Weighted sparse matrices: the {wM, M, Mw} abstraction, TPU-native.
 
@@ -154,6 +157,20 @@ class WeightedMatrix:
     def to_scipy(self):
         from scipy.sparse import coo_matrix
         return coo_matrix((self.vals, (self.rows, self.cols)), shape=self.shape)
+
+    @classmethod
+    def from_sorted(cls, rows, cols, vals, shape) -> "WeightedMatrix":
+        """The matrix of COO that is ``coo_dedup``'s output already:
+        distinct (row, col) entries sorted by row, then column.  Taken as
+        given, with no second dedup."""
+        m = cls.__new__(cls)
+        m.rows = np.asarray(rows, dtype=np.int64)
+        m.cols = np.asarray(cols, dtype=np.int64)
+        m.vals = np.asarray(vals, dtype=np.float64)
+        m.shape = tuple(int(n) for n in shape)
+        m._wM = None
+        m._Mw = None
+        return m
 
     @classmethod
     def from_scipy(cls, m) -> "WeightedMatrix":

@@ -10,12 +10,14 @@ them at its own layer boundaries:
   fused=True)``; inside it ``window.forcing`` (a sheet's forcing
   assembled), ``window.launch`` (a sheet's K steps enqueued, or a budget
   rerun's) and ``window.fetch`` (the wait for the window's rows);
-* ``regen``: a matrix regeneration (``IceSheetCoupler._regen_if_due``);
-  inside it ``regen.factory`` (the elevation mask's fetch, the host
-  matrix factory and its matrices), ``regen.pack`` (the CSRs' host
-  arrays), ``regen.upload`` (their copies to the device and what the
-  device derives from them) and ``regen.e1ve0`` (E1vE0 and the held
-  state's remap);
+* ``regen``: a matrix regeneration (``IceSheetCoupler._regen_if_due``),
+  its attribute ``path`` ``"device"`` or ``"host"``; inside it
+  ``regen.factory`` (the factory and its matrices' entries: on the host
+  path with the elevation mask's fetch), ``regen.pack`` (the CSRs: host
+  arrays, or built on the device), ``regen.upload`` (host path: the
+  packs' copies to the device and what the device derives from them;
+  device path: the exchange grid's one upload, at set-up) and
+  ``regen.e1ve0`` (E1vE0 and the held state's remap);
 * ``regen.topo``: the first fhc and elevE of a matrix generation;
 * ``step.capture``: a CUDA graph capture of the compiled step.
 

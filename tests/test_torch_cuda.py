@@ -40,7 +40,11 @@ the ice state, 1e-6 of each ledger row), and the gcmce C ABI on the card
 is bit for bit the adapter driven directly.  The ModelE mismatched
 matrices (regrid/modele.py) through K1 and K2 agree with their plain
 versions to one f32 ulp and with the f64 WeightedMatrix.apply within the
-raw bound of 5e-7 (tests/test_accuracy_contract.py).
+raw bound of 5e-7 (tests/test_accuracy_contract.py).  The ordered
+segment-sum kernel (csrc/segsum.cu) adds each segment left to right, as
+its plain version does, so they agree bit for bit (also on cancelling
+terms); regeneration on the card (regrid/device.py) at Antarctica's 5 km
+exchange grid is the host factory bit for bit.
 """
 import ctypes
 
@@ -1202,3 +1206,123 @@ def test_graph_capture_failure_raises(cuda):
     sc.ice_step = step_coupled
     sc.couple(0.0, f, ledger)
     assert sc.replays == 1
+
+
+# -- regeneration on the card ----------------------------------------------
+
+def test_segment_sum_kernel_is_its_plain_version(cuda):
+    """Empty, short and 100,000-long segments of terms whose large parts
+    cancel: the kernel's sums are the plain version's bit for bit."""
+    from icebin_tpu_torch.ops.segsum import segment_sum, segment_sum_ref
+    rng = np.random.default_rng(23)
+    lens = np.concatenate([rng.integers(0, 4, 200_000), [100_000, 0, 7],
+                           rng.integers(0, 300, 2_000)])
+    rng.shuffle(lens)
+    ptr = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]))
+    n = int(ptr[-1])
+    vals = torch.as_tensor(rng.standard_normal(n)
+                           * 10.0 ** rng.integers(-3, 12, n))
+    segment_sum.launches = 0
+    got = segment_sum(vals.to(cuda), ptr.to(cuda))
+    torch.cuda.synchronize()
+    assert segment_sum.launches == 1
+    assert same(got.cpu(), segment_sum_ref(vals, ptr))
+    empty = segment_sum(vals[:0].to(cuda), ptr[:1].to(cuda))
+    assert empty.shape == (0,)
+
+
+def dome_masks(specI, seed=29):
+    """A dome over the lattice's inner disc (NaN outside), and the next
+    generation's: a seeded fifth of its ice gone, the rest 37.5 m higher."""
+    x = 0.5 * (specI.xb[1:] + specI.xb[:-1])
+    y = 0.5 * (specI.yb[1:] + specI.yb[:-1])
+    X, Y = np.meshgrid((x - x.mean()) / np.ptp(x), (y - y.mean()) / np.ptp(y))
+    r = np.hypot(X, Y) / 0.45
+    m0 = np.where(r < 1.0, 3600.0 * np.sqrt(np.clip(1 - r, 0, 1)) - 40.0,
+                  np.nan).reshape(-1)
+    iced = np.flatnonzero(np.isfinite(m0))
+    m1 = m0 + 37.5
+    m1[np.random.default_rng(seed).choice(iced, len(iced) // 5,
+                                          replace=False)] = np.nan
+    return m0, m1
+
+
+def test_regeneration_on_the_card_is_the_host_factory(cuda):
+    """Antarctica at 5 km (its exchange grid clipped on the card): the
+    device factory's EvI/AvI packs (both CSRs, the live rows, the f64
+    weights), E1vE0 between two generations, the EC measure, fhc and elevE
+    are the host factory's bit for bit, and the pack's row and column sums
+    through the kernel its plain version's."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.coupler.e1ve0 import e1ve0_matrix
+    from icebin_tpu_torch.ops.csr import csr_pack_sorted
+    from icebin_tpu_torch.ops.segsum import segment_sum, segment_sum_ref
+    from icebin_tpu_torch.regrid.device import (DeviceExchange,
+                                                DeviceRegridMatrices,
+                                                e1ve0_device)
+    from icebin_tpu_torch.regrid.matrices import RegridParams
+    from icebin_tpu_torch.tools.common import (HCDEFS, antarctica_spec,
+                                               greenland_specs)
+    specA, _ = greenland_specs()
+    specI = antarctica_spec()
+    gr = port.GCMRegridder(specA, HCDEFS, device=cuda)
+    gr.add_sheet("antarctica", specI, subdiv=2)
+    xd = DeviceExchange(gr, "antarctica", cuda)
+    assert xd.iA.numel() > 1_000_000
+    m0, m1 = dome_masks(specI)
+    h0, h1 = (gr.regrid_matrices("antarctica", m, smooth=False)
+              for m in (m0, m1))
+    d0, d1 = (DeviceRegridMatrices(xd, torch.as_tensor(m, device=cuda))
+              for m in (m0, m1))
+
+    def bits(a, b, what):
+        a, b = (torch.as_tensor(np.ascontiguousarray(x)) if isinstance(
+            x, np.ndarray) else x.cpu() for x in (a, b))
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert (same(a, b) if a.is_floating_point()
+                else torch.equal(a, b)), what
+
+    P = RegridParams()
+    segment_sum.launches = 0
+    for name in ("EvI", "AvI"):
+        ph = csr_pack(h1.matrix(name, P), nv=16, device=cuda)
+        rows, cols, vals, shape = d1.coo(name, P)
+        pd = csr_pack_sorted(rows, cols, vals, shape, nv=16)
+        for side in ("small", "ice"):
+            a, b = getattr(ph, side), getattr(pd, side)
+            for k in ("rowptr", "cols", "vals", "winv", "live"):
+                bits(getattr(a, k), getattr(b, k), f"{name} {side} {k}")
+            assert a.n_live == b.n_live
+        bits(ph.wS, pd.wS, f"{name} wS")
+        bits(ph.wI, pd.wI, f"{name} wI")
+        ptr = torch.searchsorted(rows, torch.arange(shape[0] + 1,
+                                                    device=cuda))
+        bits(segment_sum(vals, ptr), segment_sum_ref(vals.cpu(), ptr.cpu()),
+             f"{name} row sums through the kernel")
+    assert segment_sum.launches > 0
+    a, b = e1ve0_matrix(h0, h1), e1ve0_device(d0, d1)
+    assert a.nnz == b.nnz > 0
+    for k in ("rows", "cols", "vals", "wM", "Mw"):
+        bits(getattr(a, k), getattr(b, k), f"E1vE0 {k}")
+    for k in ("ec_weights", "fhc", "elevE"):
+        bits(getattr(h1, k)(), getattr(d1, k)(), k)
+
+
+def test_recaptures_reuse_their_memory(cuda):
+    """Twelve windows, each ending in a regeneration and so in a new
+    capture: each capture warms up on the coupler's one side stream and
+    takes over the memory pool of the graph it replaces, so the card's
+    reserved memory stops growing after the first generations (a new
+    stream and pool each time grew it by a capture's memory every
+    generation, until a capture ran out of memory)."""
+    cp = graph_toy(cuda)
+    sc = cp.sheets["toy"]
+    fE = torch.as_tensor(toy_forcing(cp.gr.nE, 0), device=cuda)
+    reserved = []
+    for _ in range(12):
+        cp.run_transient(lambda t, s: fE, 2, fused=True)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(cuda))
+    assert sc.regens_device == 13 and len(sc.capture_ms) == 12
+    assert set(sc._retired) == {sc.budget} and not sc._graphs
+    assert reserved[4:] == [reserved[3]] * 8, reserved

@@ -29,8 +29,9 @@ from test_torch_step_graph import N_STEPS, REGEN, cfl_port, forcing
 
 torch.set_num_threads(1)
 
-REGEN_STAGES = ("regen.factory", "regen.pack", "regen.upload",
-                "regen.e1ve0")
+# a regeneration's stages on the device path; its exchange grid's upload
+# (``regen.upload``) is made once, at set-up
+REGEN_STAGES = ("regen.factory", "regen.pack", "regen.e1ve0")
 
 
 @pytest.fixture(autouse=True)
@@ -200,7 +201,7 @@ def test_fused_run_spans():
     assert len(regens) == N_STEPS // REGEN
     for i in regens:
         assert spans[spans[i].parent].name == "window"
-        assert spans[i].attrs == {"sheet": "toy"}
+        assert spans[i].attrs == {"sheet": "toy", "path": "device"}
         kids = children(spans, i)
         assert {s.name for s in kids} == set(REGEN_STAGES)
         assert all(s.attrs in ({}, {"sheet": "toy"}) for s in kids)
@@ -278,5 +279,8 @@ def test_run_cli_writes_spans(tmp_path, capsys, monkeypatch):
             "regen.topo", "window.launch", "window.fetch"} <= set(names)
     assert all(e["ph"] == "X" and e["dur"] >= 0 for e in ev)
     assert {e["args"]["sheet"] for e in ev if e["name"] == "regen"} == {"s"}
-    # set-up builds the first matrices outside any window or regeneration
-    assert ev[0]["name"] == "regen.factory" and ev[0]["args"]["parent"] is None
+    # set-up uploads the exchange grid and builds the first matrices
+    # outside any window or regeneration
+    assert [e["name"] for e in ev[:2]] == ["regen.upload", "regen.factory"]
+    assert ev[0]["args"]["parent"] is ev[1]["args"]["parent"] is None
+    assert names.count("regen.upload") == 1
