@@ -30,14 +30,15 @@ sys.path.insert(0, str(HERE))
 
 def readings(name, seed, device, res_km=None):
     """The control's reading of each number of cell ``name``."""
-    from harness import check
+    from harness import check, gcm
     from reference.prec import CONTROL, REFERENCE
     import run as bench
 
     _, cfg, traffic, limits, _ = bench.load_cell(name)
     abi = traffic["driver"] == "abi"
-    ref = check.inputs(cfg, traffic, seed, device, REFERENCE, res_km)
-    ctl = check.inputs(cfg, traffic, seed, device, CONTROL, res_km)
+    grid = gcm.load(cfg, traffic["driver"], seed)
+    ref = check.inputs(cfg, traffic, seed, device, REFERENCE, grid, res_km)
+    ctl = check.inputs(cfg, traffic, seed, device, CONTROL, grid, res_km)
     names = [s.name for s in ref.sheets]
     nA, nhc = ref.sheets[0].xg.nA, ref.hcdefs.numel()
     mt = float(cfg["min_thickness"])
@@ -54,7 +55,7 @@ def readings(name, seed, device, res_km=None):
             rec = check.as_record(c, start, held, step0 % len(ref.F), step0,
                                   nA, nhc, abi)
             rows += rec.rows
-            g, _ = check.numbers(rec, out, names, nA, nhc, abi)
+            g, _ = check.numbers(rec, out, ref.sheets, nA, nhc, abi)
             for k, v in g.items():
                 vals[k] = max(vals.get(k, 0.0), v)
         start, held = nxt, held1

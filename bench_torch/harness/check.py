@@ -27,6 +27,16 @@ The numbers (each the largest over the sampled periods, steps and sheets):
   weights (cells outside the matrices weigh nothing; NaN against a number
   where w > 0 is an infinite gap).
 
+Two of those denominators fall toward 0 when a sheet's last cold ice
+reaches the melting point while the ice stays: the sum of the enthalpy U
+after the period, and the harvest's column specific enthalpy row; the f32
+rounding both sides carry stays the size of what the period moved.  As
+``ledger`` takes max(|r|, |in_E|), they are floored by quantities of the
+reference alone: ``state``'s sums of H and U by the mass and the energy
+the period put in (over the cell area), the specific enthalpy row by one
+step's energy input over the ice's mass (``harvest_floor``).  Where the
+sums hold their size, the floors lie far below them and change nothing.
+
 The two residual rows are defined to absorb the f32 rounding of the state
 update (they hold the books exactly); two sound runs whose states differ
 by a rounding differ there as much as the control does, so they are not
@@ -45,15 +55,14 @@ from reference import grid as rg
 from reference import ice as ri
 from reference.prec import REFERENCE
 
-from . import common, drivers, system
+from . import common, drivers, gcm, system
 
 RESIDUALS = ("mass_residual", "energy_residual")
 HELD_KEYS = ("held_mass", "held_mass_dropped", "held_mass_gained")
 
 
-def reference_sheets(cfg, device, prec, res_km=None) -> List[rc.Sheet]:
-    lonb, latb = rg.modele_bounds(cfg["gcm_grid"]["im"],
-                                  cfg["gcm_grid"]["jm"])
+def reference_sheets(cfg, grid: gcm.Grid, device, prec,
+                     res_km=None) -> List[rc.Sheet]:
     out = []
     for s in cfg["sheets"]:
         nx, ny, _ = system.lattice_shape(s, res_km)
@@ -62,7 +71,7 @@ def reference_sheets(cfg, device, prec, res_km=None) -> List[rc.Sheet]:
         lat = rg.Lattice(torch.tensor(xb, device=device),
                          torch.tensor(yb, device=device),
                          rg.parse_proj(s["proj"]))
-        xg = rg.exchange_grid(lonb, latb, lat, prec, subdiv=cfg["subdiv"])
+        xg = grid.exchange(s, lat, device, prec)
         dx, dy = float(np.diff(xb).mean()), float(np.diff(yb).mean())
         out.append(rc.Sheet(s["name"], xg, ri.IceParams(dx=dx, dy=dy), nx,
                             ny, dx * dy))
@@ -74,8 +83,9 @@ def initial_state(sh: rc.Sheet, device) -> rc.SheetState:
     return rc.SheetState(H, ri.cold_enthalpy(H), torch.zeros_like(H))
 
 
-def wgap(p, r, w) -> float:
-    """max over rows of sum w |p - r| / sum w |r| (module docstring)."""
+def wgap(p, r, w, floor=0.0) -> float:
+    """max over rows of sum w |p - r| / max(sum w |r|, floor) (module
+    docstring); ``floor`` a number or one a row."""
     p = torch.as_tensor(p).to(torch.float64)
     r = torch.as_tensor(r, device=p.device).to(torch.float64)
     w = torch.as_tensor(w, device=p.device).to(torch.float64)
@@ -87,6 +97,8 @@ def wgap(p, r, w) -> float:
     use = (w > 0)[None, :].expand_as(d)
     num = torch.where(use, d * w, 0.0).sum(-1)
     den = torch.where(use & ~nan_r, r.abs() * w, 0.0).sum(-1)
+    den = torch.maximum(den, torch.as_tensor(floor, dtype=torch.float64,
+                                             device=p.device))
     g = torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
                     torch.where(num > 0, torch.inf, 0.0))
     return float(g.max())
@@ -102,22 +114,38 @@ def transport(rows, sheets) -> float:
     return worst
 
 
-def numbers(rec, out: rc.PeriodOut, sheets, nA, nhc, abi):
+def harvest_floor(ind, W):
+    """(10,) floors of a harvest's rows (``reference.coupler.step``'s
+    layout).  The column specific enthalpy (row 9) falls to 0 as the last
+    cold ice reaches the melting point while the ice stays, and is floored
+    by what one step's energy input (``ind``, the reference's ledger
+    entries of the step) makes of it spread over the ice's mass, times the
+    matrix's total weight ``W``.  No other row falls so: runoff and rain
+    stay while rain falls, the rest read 0 on both sides or hold their
+    size."""
+    f = [0.0] * 10
+    if ind["ice_mass"] > 0:
+        f[9] = abs(ind["energy_in_E"]) * W / ind["ice_mass"]
+    return f
+
+
+def numbers(rec, out: rc.PeriodOut, sheets: List[rc.Sheet], nA, nhc, abi):
     """The gaps of one sampled period ``rec`` (the program's, or the
     control's as a record) against the reference's ``out``, and the
     ledger entry that sets its gap."""
     g = dict(ledger=0.0, forcing=0.0, harvest=0.0, state=0.0)
     worst = ""
     K = len(out.stats)
+    names = [s.name for s in sheets]
+    ind = [{s: dict(zip(rc.STAT_KEYS, out.stats[i][s].double().cpu()
+                        .tolist())) for s in names} for i in range(K)]
     for i in range(K):
-        for s in sheets:
-            ref = out.stats[i][s].double().cpu().tolist()
-            ind = dict(zip(rc.STAT_KEYS, ref))
-            for k, r in ind.items():
+        for s in names:
+            for k, r in ind[i][s].items():
                 if k in RESIDUALS:
                     continue
-                book = ind["mass_in_E" if k.startswith("mass")
-                           else "energy_in_E"]
+                book = ind[i][s]["mass_in_E" if k.startswith("mass")
+                                 else "energy_in_E"]
                 p = rec.rows[i][f"{s}.{k}"]
                 gap = abs(p - r) / max(abs(r), abs(book), 1e-300)
                 if gap > g["ledger"]:
@@ -131,20 +159,29 @@ def numbers(rec, out: rc.PeriodOut, sheets, nA, nhc, abi):
                 g["ledger"], worst = gap, f"{s}.{k}"
     steps = range(K) if len(rec.fields) == K else [K - 1]
     for j, i in enumerate(steps):
-        for s in sheets:
+        for s in names:
             m = out.ref_mats[s]
             fI, fE, fA = out.fields[i][s]
             pf = rec.fields[j][s]
             g["forcing"] = max(g["forcing"], wgap(pf["fI"], fI, m.EvI.Mw))
-            g["harvest"] = max(g["harvest"], wgap(pf["fE_out"], fE, m.EvI.wM),
-                               wgap(pf["fA_out"], fA, m.AvI.wM))
-    dev = out.states[sheets[0]].H.device
-    for s in sheets:
-        H, U = (x.to(dev) for x in rec.after[s][:2])
+            g["harvest"] = max(
+                g["harvest"],
+                wgap(pf["fE_out"], fE, m.EvI.wM,
+                     harvest_floor(ind[i][s], float(m.EvI.wM.sum()))),
+                wgap(pf["fA_out"], fA, m.AvI.wM,
+                     harvest_floor(ind[i][s], float(m.AvI.wM.sum()))))
+    dev = out.states[names[0]].H.device
+    for sh in sheets:
+        s = sh.name
+        H, U = (x.to(dev).reshape(-1) for x in rec.after[s][:2])
         S = out.states[s]
         ones = torch.ones(S.H.numel(), device=dev)
-        g["state"] = max(g["state"], wgap(H.reshape(-1), S.H.reshape(-1), ones),
-                         wgap(U.reshape(-1), S.U.reshape(-1), ones))
+        # the floors of the module docstring
+        fH = sum(abs(x[s]["mass_in_E"]) for x in ind) / (ri.RHO
+                                                        * sh.cell_area)
+        fU = sum(abs(x[s]["energy_in_E"]) for x in ind) / sh.cell_area
+        g["state"] = max(g["state"], wgap(H, S.H.reshape(-1), ones, fH),
+                         wgap(U, S.U.reshape(-1), ones, fU))
     if out.held:
         g["held"] = max(wgap(rec.held1[s], out.held[s][0],
                              out.mats[s].ec_w) for s in out.held)
@@ -193,8 +230,9 @@ class Inputs:
     regen_every: int
 
 
-def inputs(cfg, traffic, seed, device, prec, res_km=None) -> Inputs:
-    sheets = reference_sheets(cfg, device, prec, res_km)
+def inputs(cfg, traffic, seed, device, prec, grid: gcm.Grid,
+           res_km=None) -> Inputs:
+    sheets = reference_sheets(cfg, grid, device, prec, res_km)
     nE = sheets[0].xg.nA * len(cfg["hcdefs"])
     F = [torch.as_tensor(f, device=device) for f in
          common.year_of_forcing(nE, seed, int(traffic["months"]))]
@@ -300,11 +338,12 @@ def start_gaps(rec, start, held, mats):
     return g
 
 
-def check(cfg, traffic, run, seed, device, limits, res_km=None):
+def check(cfg, traffic, run, seed, device, limits, grid: gcm.Grid,
+          res_km=None):
     """(correct, {number: (value, limit)}, the ledger entry that sets its
     number) of a finished run."""
     abi = traffic["driver"] == "abi"
-    inp = inputs(cfg, traffic, seed, device, REFERENCE, res_km)
+    inp = inputs(cfg, traffic, seed, device, REFERENCE, grid, res_km)
     nA = inp.sheets[0].xg.nA
     nhc = inp.hcdefs.numel()
     names = [s.name for s in inp.sheets]
@@ -324,7 +363,7 @@ def check(cfg, traffic, run, seed, device, limits, res_km=None):
     for rec in run.records:
         out = run_period(inp, rec.start, rec.held0, rec.month0, rec.step0,
                          REFERENCE, abi, mt)
-        g, w = numbers(rec, out, names, nA, nhc, abi)
+        g, w = numbers(rec, out, inp.sheets, nA, nhc, abi)
         if g["ledger"] > vals.get("ledger", 0.0):
             where = w
         for k, v in g.items():

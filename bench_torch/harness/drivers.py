@@ -11,6 +11,9 @@
   period_steps, fused=True)`` once per period, the forcing already on the
   card.
 
+Both build the program's regridder through the configuration's GCM grid
+kind (``harness/gcm.py``), which names the drivers it supports.
+
 A period is ``period_steps`` coupling steps; every sheet advances one dt a
 step.  The window starts at a period boundary, after ``warmup_periods``,
 and closes at the first period boundary after ``--seconds``.  The first
@@ -102,10 +105,11 @@ def _mark(name, on):
 
 class Driver:
     """Shared by both drivers: the forcing, the held state, the sheets'
-    timers and snapshots."""
+    timers and the kept periods."""
 
-    def __init__(self, cfg, traffic, seed, device, res_km=None):
+    def __init__(self, cfg, traffic, seed, device, grid, res_km=None):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
+        self.grid = grid
         self.device = torch.device(device)
         self.res_km = res_km
         self.K = int(traffic["period_steps"])
@@ -140,12 +144,23 @@ class Driver:
             return out
         sc._regen_if_due = wrapped
 
-    def snapshot(self, sheets, into: dict, held: dict):
-        for name, sc in sheets.items():
+    def kept_period(self, index: int, step_s: list):
+        """A period kept for the comparison with the reference: (its
+        ``Record``, its failed steps)."""
+        rec = Record(index=index, month0=self.step % self.months,
+                     step0=self.step)
+        for name, sc in self.sheets.items():
             st = sc.state
-            into[name] = (st.H.clone(), st.enth.clone(), st.bed.clone())
+            rec.start[name] = (st.H.clone(), st.enth.clone(), st.bed.clone())
             if sc.held_E is not None:
-                held[name] = sc.held_E.copy()
+                rec.held0[name] = sc.held_E.copy()
+        fails = self.period(rec, step_s)
+        rec.rows = list(self.rows()[-self.K:])
+        rec.after = {n: (sc.state.H.clone(), sc.state.enth.clone())
+                     for n, sc in self.sheets.items()}
+        rec.held1 = {n: sc.held_E.copy() for n, sc in self.sheets.items()
+                     if sc.held_E is not None}
+        return rec, fails
 
     def spmm_bound(self, sheets) -> float:
         """Least seconds of one step's IvE, EvI and AvI applies over every
@@ -183,7 +198,7 @@ class AbiDriver(Driver):
         lib.gcmce_delete.argtypes = [ctypes.c_int]
         lib.gcmce_delete.restype = None
         self.lib = lib
-        gr = system.regridder(self.cfg, self.device, self.res_km)
+        gr = self.grid.regridder(self.device, self.res_km)
         with tempfile.TemporaryDirectory() as d:
             a = os.path.join(d, "a.nc")
             write_grid(a, gr.specA)
@@ -302,7 +317,7 @@ class FusedDriver(Driver):
 
     def setup(self):
         from icebin_tpu_torch import GCMCoupler
-        gr = system.regridder(self.cfg, self.device, self.res_km)
+        gr = self.grid.regridder(self.device, self.res_km)
         self.cp = GCMCoupler(gr, system.coupler_config(self.cfg,
                                                        self.traffic),
                              device=self.device)
@@ -359,12 +374,13 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
-def run_cell(cfg, traffic, seed, seconds, device, *, trace=False,
+def run_cell(cfg, traffic, seed, seconds, device, grid, *, trace=False,
              res_km=None, t_start=None) -> Run:
     """Set up, warm up, run the window, and (``trace``) a profiled segment
-    after it."""
+    after it; ``grid`` is the configuration's GCM grid (``harness.gcm``)."""
     t_start = time.perf_counter() if t_start is None else t_start
-    drv = DRIVERS[traffic["driver"]](cfg, traffic, seed, device, res_km)
+    drv = DRIVERS[traffic["driver"]](cfg, traffic, seed, device, grid,
+                                     res_km)
     run = Run()
     drv.setup()
     run.n_sheets = len(drv.sheets)
@@ -380,19 +396,11 @@ def run_cell(cfg, traffic, seed, seconds, device, *, trace=False,
     j = 0
     while True:
         slot = sampler.slot(j)
-        rec = None
-        if slot is not None:
-            rec = Record(index=j, month0=drv.step % drv.months,
-                         step0=drv.step)
-            drv.snapshot(drv.sheets, rec.start, rec.held0)
-        run.failed += drv.period(rec, run.step_s)
-        if rec is not None:
-            rec.rows = list(drv.rows()[-drv.K:])
-            rec.after = {n: (sc.state.H.clone(), sc.state.enth.clone())
-                         for n, sc in drv.sheets.items()}
-            rec.held1 = {n: sc.held_E.copy() for n, sc in drv.sheets.items()
-                         if sc.held_E is not None}
-            sampler.kept[slot] = rec
+        if slot is None:
+            run.failed += drv.period(None, run.step_s)
+        else:
+            sampler.kept[slot], fails = drv.kept_period(j, run.step_s)
+            run.failed += fails
         j += 1
         t = time.perf_counter()
         run.period_s.append(t - t_prev)

@@ -1,7 +1,6 @@
 """The system under test, built from a configuration file: the program's
-grids, regridder (exchange grids through the clip kernel on the card) and
-coupler settings.  Everything that touches ``icebin_tpu_torch`` in set-up
-is here."""
+ice lattices and coupler settings.  The GCM grid and the regridder over it
+are the kind's (``harness/gcm.py``, ``gcm/<kind>.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,30 +15,17 @@ def lattice_shape(sheet: dict, res_km=None):
     return nx, ny, res
 
 
-def program_specs(cfg: dict, res_km=None):
-    """(specA, {sheet: specI}) as the program's grid specs."""
-    from icebin_tpu_torch.grid import GridSpecXY, modele_lonlat_grid
-    g = cfg["gcm_grid"]
-    specA = modele_lonlat_grid(g["im"], g["jm"])
-    sheets = {}
+def sheet_specs(cfg: dict, res_km=None):
+    """{sheet: the program's GridSpecXY of its lattice}."""
+    from icebin_tpu_torch.grid import GridSpecXY
+    specs = {}
     for s in cfg["sheets"]:
         nx, ny, _ = lattice_shape(s, res_km)
-        sheets[s["name"]] = GridSpecXY(
+        specs[s["name"]] = GridSpecXY(
             xb=np.linspace(s["x0"], s["x1"], nx + 1),
             yb=np.linspace(s["y0"], s["y1"], ny + 1),
             projection=s["proj"], name=s["name"])
-    return specA, sheets
-
-
-def regridder(cfg: dict, device, res_km=None):
-    """The program's GCMRegridder with every sheet's exchange grid built
-    on ``device`` (the clip kernel on the card)."""
-    from icebin_tpu_torch import GCMRegridder
-    specA, sheets = program_specs(cfg, res_km)
-    gr = GCMRegridder(specA, cfg["hcdefs"], device=device)
-    for name, specI in sheets.items():
-        gr.add_sheet(name, specI, subdiv=cfg["subdiv"])
-    return gr
+    return specs
 
 
 def regen_every(traffic: dict) -> int:

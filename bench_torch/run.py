@@ -7,13 +7,16 @@ cell.
 
 Run from the root of a checkout.  The cell is looked up by name in
 ``BENCHMARK.json``; its configuration (``configs/<config>.json``), traffic
-(``traffic/<traffic>.json``), limits (``limits/<cell>.json``) and each
-metric's reader (``metrics/<metric>.py``) are found by name under this
-directory.  With ``--trace 0`` the last line of standard output is the
-cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics, both
-as one JSON object with ``correct``; the numbers compared are the last
-lines of standard error.  Without a CUDA card (or with fewer than the cell
-asks for) it prints no result and exits 2.
+(``traffic/<traffic>.json``), limits (``limits/<cell>.json``), the two
+halves of its GCM grid kind (``gcm/<kind>.py``,
+``reference/gcm/<kind>.py``) and each metric's reader
+(``metrics/<metric>.py``) are found by name under this directory.  With
+``--trace 0`` the last line of standard output is the cell's end-to-end
+metrics, with ``--trace 1`` its per-layer metrics, both as one JSON object
+with ``correct``; the numbers compared are the last lines of standard
+error.  Without a CUDA card (or with fewer than the cell asks for) it
+prints no result and exits 2; where the run has loaded JAX or the JAX
+package, it exits 3.
 """
 from __future__ import annotations
 
@@ -44,7 +47,10 @@ for p in (str(HERE), str(ROOT)):
 
 def load_cell(name: str):
     """(workload, configuration, traffic, limits, BENCHMARK.json) of cell
-    ``name``."""
+    ``name``; stops where the configuration's GCM grid kind is unknown or
+    does not drive the traffic (``harness/gcm.py``)."""
+    from harness import gcm
+
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     wl = next((w for w in bench["workloads"] if w["name"] == name), None)
     if wl is None:
@@ -54,6 +60,10 @@ def load_cell(name: str):
     traffic = json.loads((HERE / "traffic" / f"{wl['traffic']}.json")
                          .read_text())
     limits = json.loads((HERE / "limits" / f"{name}.json").read_text())
+    try:
+        gcm.find(cfg, traffic["driver"])
+    except gcm.KindError as e:
+        raise SystemExit(f"run.py: cell {name}: {e}") from None
     return wl, cfg, traffic, limits, bench
 
 
@@ -64,6 +74,14 @@ def metric_reader(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def foreign_modules():
+    """Top-level names in ``sys.modules`` of JAX or of the JAX package,
+    which a run of the port must not load (the port's own name begins with
+    the JAX package's, so whole names are compared)."""
+    return sorted({n.split(".")[0] for n in sys.modules}
+                  & {"jax", "jaxlib", "flax", "icebin_tpu"})
 
 
 def cell_metrics(bench, name, trace):
@@ -79,17 +97,18 @@ def measure(name, seed, seconds, trace, device, res_km=None, t_start=None):
     standard error)."""
     import torch
 
-    from harness import check, common, drivers
+    from harness import check, common, drivers, gcm
 
     wl, cfg, traffic, limits, bench = load_cell(name)
-    run = drivers.run_cell(cfg, traffic, seed, seconds, device, trace=trace,
-                           res_km=res_km, t_start=t_start)
+    grid = gcm.load(cfg, traffic["driver"], seed)
+    run = drivers.run_cell(cfg, traffic, seed, seconds, device, grid,
+                           trace=trace, res_km=res_km, t_start=t_start)
     run.card = common.card() if device.type == "cuda" else "cpu"
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     ok, table, where = check.check(cfg, traffic, run, seed, device, limits,
-                                   res_km)
+                                   grid, res_km)
 
     metrics = {}
     for m in cell_metrics(bench, name, trace):
@@ -156,6 +175,11 @@ def main(argv=None) -> int:
     result, notes, lines = measure(a.workload, a.seed, a.seconds,
                                    bool(a.trace), torch.device("cuda", 0),
                                    t_start=T0)
+    bad = foreign_modules()
+    if bad:
+        print(f"run.py: the run loaded {', '.join(bad)}; no result",
+              file=sys.stderr)
+        return 3
     for n in notes:
         print(n, flush=True)
     print(json.dumps(result), flush=True)

@@ -2,6 +2,7 @@
 bound, the trace reduction, the seeded inputs, and what it imports."""
 import ast
 import importlib.util
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -142,6 +143,16 @@ def test_nothing_imports_jax_or_the_jax_package():
     for f in files:
         bad = imports(f) & {"jax", "jaxlib", "icebin_tpu"}
         assert not bad, f"{f} imports {bad}"
+
+
+def test_a_run_that_loaded_jax_is_seen(monkeypatch):
+    import icebin_tpu_torch  # noqa: F401  (named as the JAX package, longer)
+    import run as bench
+    assert "icebin_tpu_torch" in sys.modules
+    assert "icebin_tpu_torch" not in bench.foreign_modules()
+    monkeypatch.setitem(sys.modules, "jax.numpy", object())
+    monkeypatch.setitem(sys.modules, "icebin_tpu.ops", object())
+    assert {"jax", "icebin_tpu"} <= set(bench.foreign_modules())
 
 
 def test_the_reference_imports_nothing_of_the_program():
