@@ -42,7 +42,11 @@ Differences from the reference:
   bit for bit the host factory's.  With sigma (a scipy composition) and
   on a mesh rank (``coupler.sharded``, blocks cut from ``rm.matrix``) the
   host factory builds them, as in the reference.  ``regens_device`` and
-  ``regens_host`` count the matrix builds by path.
+  ``regens_host`` count the matrix builds by path.  The regridder may be
+  ModelE's mismatched one (``regrid.modele.GCMRegridderModelE``, its
+  exchange grids against the ocean grid O): it hands the device path its
+  cells moved to A and scaled (``device_exchange``) and the host path its
+  retargeted factory, so both build A-level matrices.
 * The host work of a fused window and of a regeneration is spanned
   (``utils.trace``: ``window``, ``window.forcing``, ``window.launch``,
   ``window.fetch``, ``regen`` and its stages, ``regen.topo``); the
@@ -76,8 +80,7 @@ from icebin_tpu_torch.models.ice_sheet import (RHO_ICE, IceFluxes,
                                                step_coupled)
 from icebin_tpu_torch.ops.apply import apply_view
 from icebin_tpu_torch.ops.csr import CsrView, csr_pack_sorted, csr_view_pair
-from icebin_tpu_torch.regrid.device import (DeviceExchange,
-                                            DeviceRegridMatrices,
+from icebin_tpu_torch.regrid.device import (DeviceRegridMatrices,
                                             e1ve0_device)
 from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
 from icebin_tpu_torch.regrid.matrices import RegridMatrices, RegridParams
@@ -143,16 +146,20 @@ class HostRegen:
 
 class DeviceRegen:
     """How a coupler builds its matrices on the device (``regrid.device``):
-    the sheet's exchange grid uploaded once, here (span ``regen.upload``),
-    ``DeviceRegridMatrices``, ``csr_pack_sorted`` and ``e1ve0_device``.
-    Taken on one device without sigma smoothing."""
+    the sheet's exchange grid, as its regridder hands it over
+    (``device_exchange``: A-level cells, for ModelE's regridder its O-level
+    cells moved to A and scaled), uploaded once, here (span
+    ``regen.upload``), ``DeviceRegridMatrices``, ``csr_pack_sorted`` and
+    ``e1ve0_device``.  Taken on one device without sigma smoothing."""
 
     path = "device"
 
     def __init__(self, sc: "IceSheetCoupler"):
         self.sc = sc
         with span("regen.upload", sheet=sc.sheet):
-            self.xd = DeviceExchange(sc.gr, sc.sheet, sc.device)
+            self.xd = sc.gr.device_exchange(sc.sheet, sc.device)
+            if self.xd.ocean is not None:
+                self.xd.count_ocean_iced(sc.elevmask())
 
     def factory(self, elevmask):
         """(the mask as given, the factory built from it)."""
@@ -565,7 +572,8 @@ class IceSheetCoupler:
         if self.steps_since_regen < self.cfg.regen_every:
             return None
         remap = None
-        with span("regen", sheet=self.sheet, path=self.regen.path):
+        with span("regen", sheet=self.sheet, path=self.regen.path,
+                  grid=self.gr.grid_kind):
             old_rm = self.regen_matrices()
             if old_rm is not None:
                 with span("regen.e1ve0", sheet=self.sheet):

@@ -23,7 +23,9 @@ trajectory is the single-rank run's), the active mask keeps them out of
 the books and the harvest, and each rank's cells are its block's
 (``sharded.py:70-80,98-104,110-125``).  Only a mesh that leaves some rank
 no real row is rejected (``:74-77``).  Every rank regenerates the same
-matrices from the gathered elevmask and packs its own cells.
+matrices from the gathered elevmask and packs its own cells; over ModelE's
+mismatched regridder (``regrid.modele``) it cuts them from the retargeted
+host factory, whose cells are A's as a plain regridder's are.
 """
 from __future__ import annotations
 

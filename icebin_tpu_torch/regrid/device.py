@@ -8,7 +8,10 @@ work runs where the ice state already lies:
 
 * ``DeviceExchange``: a sheet's exchange grid (``iA``, ``iI``, ``area``;
   not the centroids, which no matrix reads) and the A grid's correctA
-  factors, uploaded once.
+  factors, uploaded once.  A regridder hands its coupler one
+  (``device_exchange``): a plain ``GCMRegridder`` its A-level exchange
+  grid, ModelE's (``regrid.modele``) its O-level cells moved to A and
+  scaled, so everything below reads A-level cells either way.
 * ``DeviceRegridMatrices``: ``RegridMatrices``'s kept cells and
   elevation-class split from a device elevation mask (``nonzero`` keeps
   the kept cells ascending, as ``np.nonzero`` does; the split is
@@ -98,25 +101,63 @@ def coo_dedup_device(rows, cols, vals, shape):
 class DeviceExchange:
     """One sheet's exchange grid and its regridder's A-grid constants on
     ``device``: what every regeneration of the sheet reads, uploaded
-    once."""
+    once.  ``DeviceExchange(gr, sheet, device)`` takes a plain
+    ``GCMRegridder``'s sheet, whose exchange grid must be against ``gr``'s
+    A grid (``nA``); ``of`` takes exchange cells already placed on A (the
+    ModelE regridder's, ``regrid.modele``)."""
+
+    #: exchange cells whose O cell ModelE counts as ocean and that hold ice
+    #: at set-up (``count_ocean_iced``); 0 where no cell is marked
+    ocean_iced = 0
 
     def __init__(self, gr, sheet: str, device):
         sh = gr.sheets[sheet]
         xg = sh.exchange
-        dev = torch.device(device)
-        self.device = dev
-        self.nA, self.nI = int(xg.nA), int(xg.nI)
-        self.hcdefs = torch.as_tensor(np.asarray(gr.hcdefs, np.float64),
-                                      device=dev)
-        self.iA = torch.as_tensor(np.asarray(xg.iA, np.int64), device=dev)
-        self.iI = torch.as_tensor(np.asarray(xg.iI, np.int64), device=dev)
-        self.area = torch.as_tensor(np.asarray(xg.area, np.float64),
-                                    device=dev)
+        if int(xg.nA) != int(gr.nA):
+            raise ValueError(
+                f"sheet {sheet!r}'s exchange grid is against {xg.nA} GCM "
+                f"cells, the regridder's A grid has {gr.nA}: an exchange "
+                f"grid of another grid (a ModelE ocean grid O) is not read "
+                f"as A's")
         # RegridMatrices.matrix's correctA factor
         native = np.asarray(gr.specA.cell_areas(), np.float64)
         proj = np.asarray(sh.areaA_proj, np.float64)
-        self.cA = torch.as_tensor(native / np.where(proj > 0, proj, 1.0),
-                                  device=dev)
+        self._upload(xg.iA, xg.iI, xg.area,
+                     native / np.where(proj > 0, proj, 1.0), xg.nI,
+                     gr.hcdefs, device, None)
+
+    @classmethod
+    def of(cls, iA, iI, area, cA, nI: int, hcdefs, device,
+           ocean=None) -> "DeviceExchange":
+        """Exchange cells (A cell, ice cell, area) with the A grid's
+        correctA factors ``cA`` ((nA,): ``nA`` is its length); ``ocean``
+        marks the cells ``count_ocean_iced`` counts."""
+        xd = cls.__new__(cls)
+        xd._upload(iA, iI, area, cA, nI, hcdefs, device, ocean)
+        return xd
+
+    def _upload(self, iA, iI, area, cA, nI, hcdefs, device, ocean):
+        dev = torch.device(device)
+        self.device = dev
+        self.nA, self.nI = len(cA), int(nI)
+        self.hcdefs = torch.as_tensor(np.asarray(hcdefs, np.float64),
+                                      device=dev)
+        self.iA = torch.as_tensor(np.asarray(iA, np.int64), device=dev)
+        self.iI = torch.as_tensor(np.asarray(iI, np.int64), device=dev)
+        self.area = torch.as_tensor(np.asarray(area, np.float64),
+                                    device=dev)
+        self.cA = torch.as_tensor(np.asarray(cA, np.float64), device=dev)
+        self.ocean = (None if ocean is None else
+                      torch.as_tensor(np.asarray(ocean, bool), device=dev))
+
+    def count_ocean_iced(self, elevmaskI) -> int:
+        """Set and return ``ocean_iced``: the marked cells whose ice cell
+        holds ice in ``elevmaskI`` (one read on the host)."""
+        if self.ocean is not None:
+            mask = torch.as_tensor(elevmaskI).reshape(-1).to(self.device)
+            self.ocean_iced = int((self.ocean
+                                   & torch.isfinite(mask)[self.iI]).sum())
+        return self.ocean_iced
 
 
 class DeviceRegridMatrices:

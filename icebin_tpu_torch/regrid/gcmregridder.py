@@ -23,6 +23,7 @@ import torch
 from icebin_tpu_torch.grid.exchange import (ExchangeGrid, make_exchange_grid,
                                             prepare_subject_polygons)
 from icebin_tpu_torch.grid.spec import Grid, GridSpecXY
+from icebin_tpu_torch.regrid.device import DeviceExchange
 from icebin_tpu_torch.regrid.matrices import RegridMatrices
 from icebin_tpu_torch.utils.indexing import Indexing
 
@@ -46,7 +47,13 @@ class IceSheet:
 
 class GCMRegridder:
     """Reference API parity: ``add_sheet`` <-> grid/exchange ingestion,
-    ``regrid_matrices(sheet, elevmaskI)`` -> matrix factory."""
+    ``regrid_matrices(sheet, elevmaskI)`` -> matrix factory;
+    ``device_exchange(sheet, device)`` -> what regeneration on the device
+    reads."""
+
+    #: the GCM grid the matrices are built over (the ``regen`` span's
+    #: ``grid``): the A grid's own exchange grids
+    grid_kind = "lonlat"
 
     def __init__(self, gridA, hcdefs, *, device,
                  sheets: Optional[Dict[str, IceSheet]] = None):
@@ -109,6 +116,11 @@ class GCMRegridder:
                                                          subdiv=subdiv))
         self.sheets[name] = sheet
         return sheet
+
+    def device_exchange(self, sheet_name: str, device):
+        """The sheet's exchange grid and correctA factors uploaded to
+        ``device`` (``regrid.device.DeviceExchange``)."""
+        return DeviceExchange(self, sheet_name, device)
 
     def regrid_matrices(self, sheet_name: str, elevmaskI,
                         smooth: bool = True) -> RegridMatrices:

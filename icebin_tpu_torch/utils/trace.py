@@ -11,13 +11,18 @@ them at its own layer boundaries:
   assembled), ``window.launch`` (a sheet's K steps enqueued, or a budget
   rerun's) and ``window.fetch`` (the wait for the window's rows);
 * ``regen``: a matrix regeneration (``IceSheetCoupler._regen_if_due``),
-  its attribute ``path`` ``"device"`` or ``"host"``; inside it
+  its attributes ``path`` ``"device"`` or ``"host"`` and ``grid`` (the
+  regridder's ``grid_kind``: ``"lonlat"``, or ``"modele_ocean"`` for
+  ModelE's mismatched regridder); inside it
   ``regen.factory`` (the factory and its matrices' entries: on the host
   path with the elevation mask's fetch), ``regen.pack`` (the CSRs: host
   arrays, or built on the device), ``regen.upload`` (host path: the
   packs' copies to the device and what the device derives from them;
-  device path: the exchange grid's one upload, at set-up) and
-  ``regen.e1ve0`` (E1vE0 and the held state's remap);
+  device path: the exchange grid's one upload, at set-up; inside it,
+  over ModelE's regridder, ``regen.retarget``: the O-level exchange
+  cells moved to A and scaled, attributes ``cells``, the cells moved, and
+  ``rescaled``, the A cells whose factor is not 1) and ``regen.e1ve0``
+  (E1vE0 and the held state's remap);
 * ``regen.topo``: the first fhc and elevE of a matrix generation;
 * ``step.capture``: a CUDA graph capture of the compiled step.
 

@@ -357,7 +357,7 @@ def test_resume_and_span_on_the_device_path(tmp_path):
     spans = trace.drain()
     regen = [s for s in spans if s.name == "regen"]
     assert [s.attrs for s in regen] == [
-        {"sheet": n, "path": "device"} for n in gr.sheets]
+        {"sheet": n, "path": "device", "grid": "lonlat"} for n in gr.sheets]
     assert "regen.upload" not in {s.name for s in spans}
     path = str(tmp_path / "c.npz")
     save_checkpoint(path, cp)
@@ -386,7 +386,8 @@ def test_sigma_coupler_keeps_the_host_factory():
         sc._regen_if_due(Ledger())
     spans = trace.drain()
     assert spans[0].name == "regen"
-    assert spans[0].attrs == {"sheet": "greenland", "path": "host"}
+    assert spans[0].attrs == {"sheet": "greenland", "path": "host",
+                              "grid": "lonlat"}
     assert {"regen.upload", "regen.pack"} <= {s.name for s in spans}
     assert (sc.regens_device, sc.regens_host) == (0, 2)
 

@@ -201,7 +201,8 @@ def test_fused_run_spans():
     assert len(regens) == N_STEPS // REGEN
     for i in regens:
         assert spans[spans[i].parent].name == "window"
-        assert spans[i].attrs == {"sheet": "toy", "path": "device"}
+        assert spans[i].attrs == {"sheet": "toy", "path": "device",
+                                  "grid": "lonlat"}
         kids = children(spans, i)
         assert {s.name for s in kids} == set(REGEN_STAGES)
         assert all(s.attrs in ({}, {"sheet": "toy"}) for s in kids)
@@ -242,6 +243,58 @@ def test_stepwise_couple_opens_regen_and_topo_only():
         "regen.topo", "regen", "regen.topo"]
     (i,) = [i for i, s in enumerate(spans) if s.name == "regen"]
     assert {s.name for s in children(spans, i)} == set(REGEN_STAGES)
+
+
+def modele_ocean_coupler():
+    """A fused-ready coupler over ModelE's mismatched regridder: two sheets
+    on an 8 x 8 A grid, the 16 x 16 ocean grid O nested in it, a random
+    ocean fraction and its rounding."""
+    import icebin_tpu_torch as port
+    from icebin_tpu_torch.grid import GridSpecLonLat, GridSpecXY, PlateCarree
+    from icebin_tpu_torch.regrid.modele import GCMRegridderModelE
+    specA, specO = (GridSpecLonLat(lonb=np.linspace(0.0, 40.0, n + 1),
+                                   latb=np.linspace(30.0, 70.0, n + 1))
+                    for n in (8, 16))
+    grO = port.GCMRegridder(specO, [0.0, 1000.0, 3000.0], device="cpu")
+    for name, x0 in (("west", 5), ("east", 22)):
+        grO.add_sheet(name, GridSpecXY(
+            xb=np.linspace(x0 * 25e3, (x0 + 13) * 25e3, 21),
+            yb=np.linspace(35 * 25e3, 65 * 25e3, 31),
+            projection=PlateCarree(scale=25e3)), subdiv=1)
+    op = np.clip(np.random.default_rng(0).uniform(-0.3, 0.6, specO.ncells),
+                 0, 1)
+    gr = GCMRegridderModelE(grO, specA, op, np.round(op))
+    cfg = port.CouplerConfig(regen_every=2, defer_ledger=True)
+    with trace.recording():
+        cp = port.GCMCoupler(gr, cfg, device="cpu")
+    return gr, cp, trace.drain()
+
+
+def test_fused_run_over_the_ocean_grid_spans():
+    """Over ModelE's mismatched regridder: set-up's ``regen.upload`` holds
+    one ``regen.retarget`` a sheet (the cells moved, the A cells
+    rescaled), and each ``regen`` of a fused run says its grid."""
+    gr, cp, setup = modele_ocean_coupler()
+    ups = [i for i, s in enumerate(setup) if s.name == "regen.upload"]
+    assert [setup[i].attrs["sheet"] for i in ups] == list(gr.sheets)
+    for i in ups:
+        (kid,) = children(setup, i)
+        s = setup[i].attrs["sheet"]
+        assert kid.name == "regen.retarget"
+        assert kid.attrs == {"sheet": s, "rescaled": gr.rescaled,
+                             "cells": len(gr.sheets[s].exchangeO.iA)}
+        assert kid.ns <= setup[i].ns
+    assert [s.name for s in setup].count("regen.retarget") == len(gr.sheets)
+    f = torch.zeros(8, gr.nE)
+    f[4] = -10.0
+    with trace.recording():
+        cp.run_transient(lambda t, s: f, 4, fused=True)
+    spans = trace.drain()
+    regen = [s for s in spans if s.name == "regen"]
+    assert [s.attrs for s in regen] == 2 * [
+        {"sheet": n, "path": "device", "grid": "modele_ocean"}
+        for n in gr.sheets]
+    assert "regen.retarget" not in {s.name for s in spans}
 
 
 # -- the run CLI's --spans --------------------------------------------------
