@@ -154,8 +154,9 @@ Phases, each of which exits non-zero on failure:
            K2 launched); a Roofline of the K2 apply.  Each stage's ms,
            the launches and the phase's seconds;
 18. compiled the compiled step (coupler/step_graph.py: _couple_core with the
-           SIA at a fixed substep budget as one CUDA graph a matrix
-           generation and budget) against the eager _couple_core: at config
+           SIA at a fixed substep budget as one CUDA graph a budget, kept
+           and rebound across regenerations) against the eager
+           _couple_core: at config
            #3's full width 10 stepwise steps (deferred ledger) and a fused
            window of 5, regenerating every 5, every step's fI, fE_out,
            fA_out, H, enth and all 15 ledger entries bit for bit; one
@@ -181,7 +182,16 @@ Phases, each of which exits non-zero on failure:
            (csrc/segsum.cu) on Antarctica's EvI row and column sums, bit
            for bit its plain version, timed beside it and
            torch.segment_reduce.  The kernel's launch count is the
-           regenerations' own (set to 0 before them), not the timing's.
+           regenerations' own (set to 0 before them), not the timing's;
+20. rebind the compiled step's graph kept across a regeneration, at config
+           #5: for each sheet, REBIND_TIMES times, a new generation's packs
+           (a seeded fifth of the ice removed, the surface raised) loaded
+           into the buffers the graph reads and its dest-small launches
+           rebound (ms of the copies, synchronised, and of the node
+           updates, the first of which walks the graph for them; the
+           launches updated must be the graph's), one step replayed, then
+           the same step through a graph captured afresh: bit for bit the
+           rebound graph's; a capture's ms beside the rebind's.
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -615,8 +625,8 @@ def phase_profile(cp, step_ms, device, n=None, tag="profile"):
     import torch
     from torch.profiler import ProfilerActivity, profile
     if n is None:
-        # the first step of a generation captures the compiled step: it
-        # runs before the profiler starts
+        # the first step after a regeneration runs before the profiler
+        # starts (a coupler's first step captures the compiled step)
         n = min(REGEN - 2 - sc.steps_since_regen
                 for sc in cp.sheets.values())
         cp.couple({name: torch.as_tensor(forcing(cp.gr.nE, seed=9),
@@ -2306,7 +2316,7 @@ def drive_pair(a, b, steps, window, device, tag):
 
 def graph_stats(cp):
     return {name: {"replays": sc.replays, "reruns": sc.reruns,
-                   "budget": sc.budget,
+                   "budget": sc.budget, "rebinds": sc.rebinds,
                    "capture_ms": [round(m, 1) for m in sc.capture_ms]}
             for name, sc in cp.sheets.items()}
 
@@ -2319,7 +2329,7 @@ def phase_compiled(gr3, gr5, device):
     med = lambda x: float(np.median(x)) if x else float("nan")
 
     # config #3: 10 stepwise steps and a fused window of 5, regenerating
-    # every 5 (3 regenerations, each recapturing)
+    # every 5 (3 regenerations, each rebinding the kept graph)
     held = np.random.default_rng(1).uniform(0.5, 2.0, (2, gr3.nE))
     a, b = compiled_pair(gr3, device, held, regen_every=COMPILED_REGEN)
     (ms_a, ms_b), fused_a, fused_b = drive_pair(
@@ -2333,8 +2343,10 @@ def phase_compiled(gr3, gr5, device):
         f"stepwise {fused_b:.1f} ms (each with its closing regeneration); "
         f"{graph_stats(a)}")
     check(sa.replays > 0, "config #3 ran no graph replay")
-    check(len(sa.capture_ms) >= 3 and sa._gen >= 4,
-          f"{sa._gen - 1} regenerations, {len(sa.capture_ms)} captures")
+    check(sa._gen >= 4 and sa.rebinds == sa._gen - 1
+          and len(sa.capture_ms) == len(sa._graphs),
+          f"{sa._gen - 1} regenerations, {sa.rebinds} rebinds, "
+          f"{len(sa.capture_ms)} captures of {len(sa._graphs)} budgets")
 
     # one steady step profiled on each (after one that captures), with the
     # regrid kernels' launches counted around it
@@ -2452,6 +2464,24 @@ def same_pack(a, b, what):
               f"regen: {what} {k} not bit for bit the host's")
 
 
+def kept_pack(pack):
+    """A copy of ``pack`` that later regenerations leave as it is (the
+    device path loads every generation's hot packs into the same
+    buffers)."""
+    import copy
+
+    def kept(csr):
+        out = copy.copy(csr)
+        for k in ("rowptr", "cols", "vals", "winv", "live"):
+            setattr(out, k, getattr(csr, k).clone())
+        return out
+
+    out = copy.copy(pack)
+    out.small, out.ice = kept(pack.small), kept(pack.ice)
+    out.wS, out.wI = pack.wS.clone(), pack.wI.clone()
+    return out
+
+
 def phase_regen(gr, device):
     """Regeneration on the card against the host factory at config #5, and
     the segment-sum kernel (see the module docstring, phase 19)."""
@@ -2484,7 +2514,8 @@ def phase_regen(gr, device):
                 (fhc, elevE), t_topo = wall_ms(sc.topo_fields)
                 ms.append((t, t_topo))
                 out.append((remap, fhc, elevE, sc.held_E.copy(),
-                            {n: sc.mat(n).pack for n in ("EvI", "AvI")}))
+                            {n: kept_pack(sc.mat(n).pack)
+                             for n in ("EvI", "AvI")}))
             runs[cls] = sc, init_ms, ms, out, ledger.to_rows()
         (dv, dinit, dms, dout, drows), (hs, hinit, hms, hout, hrows) = (
             runs[IceSheetCoupler], runs[HostRegen])
@@ -2553,6 +2584,86 @@ def phase_regen(gr, device):
     return res
 
 
+# -- phase 20: the graph kept across regenerations ----------------------------
+
+REBIND_TIMES = 3          # rebinds (and fresh captures) a sheet
+
+
+def phase_rebind(gr, device):
+    """Phase 20 (docstring at the top): a rebind against a capture."""
+    import torch
+    from icebin_tpu_torch import CouplerConfig, GCMCoupler
+    from icebin_tpu_torch.coupler.step_graph import StepGraph
+    from icebin_tpu_torch.ops.apply import spmm_dest_small
+    t_phase = time.perf_counter()
+    cfg = CouplerConfig(dt=DT, regen_every=1 << 30, defer_ledger=True)
+    cp = GCMCoupler(gr, cfg, device=device)
+    fn = lambda t, s: torch.as_tensor(forcing(gr.nE, seed=int(t // DT)),
+                                      device=device)
+    cp.run_transient(fn, 2, fused=True)       # each sheet's one capture
+    res = {}
+    for name, sc in cp.sheets.items():
+        (g,) = sc._graphs.values()
+        ms = {"load": [], "nodes": [], "capture": []}
+        nodes = []
+
+        def timed(f, key, out=None):
+            """``f`` timed into ``ms[key]`` (synchronised around it), its
+            results appended to ``out``."""
+            def run(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = f(*a)
+                torch.cuda.synchronize()
+                ms[key].append(1e3 * (time.perf_counter() - t0))
+                if out is not None:
+                    out.append(r)
+                return r
+            return run
+
+        for buf in sc.regen.buffers.values():
+            buf.load = timed(buf.load, "load")
+        g.rebind = timed(g.rebind, "nodes", nodes)
+        fE = fn(cp.time, name)
+        (budget,) = sc._graphs
+        for k in range(REBIND_TIMES):
+            sc.state = regen_state(sc.state, 40 + k)
+            sc.regen_matrices()       # the packs loaded, the graph rebound
+            st = sc.state
+            inputs = (st.H, st.bed, st.t, st.enth, fE)
+            rebound = [x.clone() for x in g.run(inputs)]
+            fresh = StepGraph(sc._step_fn(budget), inputs,
+                              stream=sc._capture_stream)
+            torch.cuda.synchronize()
+            ms["capture"].append(fresh.capture_ms or float("nan"))
+            check(all(same(a, b) for a, b in zip(rebound,
+                                                 fresh.run(inputs))),
+                  f"rebind {name}: the rebound graph's step is not a fresh "
+                  f"capture's bit for bit")
+            fresh.reset()
+        want = g.launches.get(spmm_dest_small, 0)
+        check(nodes == [want] * REBIND_TIMES and want > 0,
+              f"rebind {name}: {nodes} dest-small launches updated")
+        # a rebind: both hot packs' copies and the node updates
+        rebind = [a + b + n for a, b, n in zip(ms["load"][::2],
+                                               ms["load"][1::2],
+                                               ms["nodes"])]
+        res[name] = {k: float(np.median(v)) for k, v in ms.items()}
+        res[name]["rebind"] = float(np.median(rebind))
+        say(f"rebind {name}: {want} dest-small launches; a rebind "
+            f"{', '.join(f'{m:.3f}' for m in rebind)} ms (the packs' copies "
+            f"into the graph's buffers "
+            f"{', '.join(f'{m:.3f}' for m in ms['load'])} ms, the node "
+            f"updates "
+            f"{', '.join(f'{m:.3f}' for m in ms['nodes'])} ms); a fresh "
+            f"capture {', '.join(f'{m:.1f}' for m in ms['capture'])} ms; "
+            f"EvI/AvI live rows "
+            f"{[sc.mat(n).pack.small.n_live for n in ('EvI', 'AvI')]}; the "
+            f"rebound step bit for bit the fresh capture's; {CARD}")
+    say(f"rebind: phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main():
     global CARD
     import torch
@@ -2606,6 +2717,7 @@ def main():
     phase_topo(device, counters)
     phase_compiled(cp.gr, ms.gr, device)
     regen = phase_regen(ms.gr, device)
+    phase_rebind(ms.gr, device)
     for mod in ("jax", "icebin_tpu"):
         check(mod not in sys.modules, f"{mod} was imported")
     launches["clip_areas_centroids_poly"] = poly["launches"]

@@ -21,7 +21,10 @@ Differences from the reference:
   reference's rule (the SIA step, or a model marked ``jittable``;
   ``_fusible`` at ``coupler.py:485-493``) captures ``_couple_core`` with
   the SIA at a fixed budget of CFL substeps (``advance(...,
-  substeps=s)``), once per matrix generation and budget, and replays it.
+  substeps=s)``), once per budget, and replays it.  The graph is kept
+  across regenerations: on the device path the new packs are loaded into
+  the buffers it reads and its dest-small launches are rebound in place
+  (``_rebind_graphs``); a host-path regeneration captures it again.
   ``couple`` replays one step and reads (short, substeps) back in one
   small fetch; ``couple_window`` replays the K steps back to back and
   fetches the K ledger rows and flags once at the end, so a window is
@@ -79,7 +82,8 @@ from icebin_tpu_torch.models.ice_sheet import (RHO_ICE, IceFluxes,
                                                advance, init_state,
                                                step_coupled)
 from icebin_tpu_torch.ops.apply import apply_view
-from icebin_tpu_torch.ops.csr import CsrView, csr_pack_sorted, csr_view_pair
+from icebin_tpu_torch.ops.csr import (CsrBuffers, CsrView, csr_pack_sorted,
+                                      csr_view_pair)
 from icebin_tpu_torch.regrid.device import (DeviceRegridMatrices,
                                             e1ve0_device)
 from icebin_tpu_torch.regrid.gcmregridder import GCMRegridder
@@ -89,6 +93,9 @@ from icebin_tpu_torch.utils.trace import span
 __all__ = ["CouplerConfig", "IceSheetCoupler", "GCMCoupler"]
 
 _F64 = torch.float64
+#: the matrices the coupling step applies, each with its transpose (IvE,
+#: IvA)
+HOT = ("EvI", "AvI")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +157,11 @@ class DeviceRegen:
     (``device_exchange``: A-level cells, for ModelE's regridder its O-level
     cells moved to A and scaled), uploaded once, here (span
     ``regen.upload``), ``DeviceRegridMatrices``, ``csr_pack_sorted`` and
-    ``e1ve0_device``.  Taken on one device without sigma smoothing."""
+    ``e1ve0_device``.  The hot packs (``HOT``) are loaded into buffers
+    sized once for the most entries the exchange grid can give
+    (``CsrBuffers``, ``DeviceExchange.max_entries``), so every generation's
+    lies where the compiled step's graphs read.  Taken on one device
+    without sigma smoothing."""
 
     path = "device"
 
@@ -160,6 +171,8 @@ class DeviceRegen:
             self.xd = sc.gr.device_exchange(sc.sheet, sc.device)
             if self.xd.ocean is not None:
                 self.xd.count_ocean_iced(sc.elevmask())
+        #: by hot matrix, the buffers its packs are loaded into
+        self.buffers: Dict[str, CsrBuffers] = {}
 
     def factory(self, elevmask):
         """(the mask as given, the factory built from it)."""
@@ -173,6 +186,13 @@ class DeviceRegen:
         with span("regen.factory", sheet=self.sc.sheet):
             rows, cols, vals, shape = rm.coo(name, params)
         pack = csr_pack_sorted(rows, cols, vals, shape, nv=self.sc.cfg.nv)
+        if name in HOT:
+            if name not in self.buffers:
+                self.buffers[name] = CsrBuffers(
+                    *shape, self.xd.max_entries(name), pack.nv,
+                    device=self.sc.device)
+            with span("regen.pack", sheet=self.sc.sheet):
+                pack = self.buffers[name].load(pack)
         return CsrView(pack, transposed=False), CsrView(pack,
                                                         transposed=True)
 
@@ -238,25 +258,29 @@ class IceSheetCoupler:
         #: (ny, nx) bool mask of the physical lattice cells, or None when
         #: all are; a ragged mesh decomposition's pad rows are not
         self._active_mask: Optional[torch.Tensor] = None
-        #: the compiled step: graphs of the current matrix generation by
-        #: substep budget, under the key of what else they froze
+        #: the matrix generation (counted by ``regen_matrices``), and the
+        #: one whose fhc and elevE are computed
         self._gen = 0
-        #: the matrix generation whose fhc and elevE are computed
         self._topo_gen = 0
+        #: the compiled step: a graph by substep budget, kept across
+        #: regenerations, under the key of what else it froze; the budgets
+        #: whose graph is captured again at its next run; whether each hot
+        #: matrix had live rows when the graphs were last made or rebound
         self._graphs: Dict[int, StepGraph] = {}
         self._graph_key = None
-        #: on the card, the captures' side stream, and by budget the graph
-        #: of the last generation, released, whose memory pool the next
-        #: capture at that budget takes over (``StepGraph``'s memory note)
+        self._stale: set = set()
+        self._live = None
+        #: on the card, the captures' side stream
         self._capture_stream = None
-        self._retired: Dict[int, StepGraph] = {}
         #: CFL substeps the compiled step starts at (the most seen)
         self.budget = 1
         #: compiled-step counters: graph replays, budget reruns (steps or
-        #: windows run again at a larger budget), and each capture's ms
+        #: windows run again at a larger budget), each capture's ms, and
+        #: the regenerations the kept graphs served (``_rebind_graphs``)
         self.replays = 0
         self.reruns = 0
         self.capture_ms: list = []
+        self.rebinds = 0
         #: matrix builds (the first, resumes and regenerations) by path
         self.regens_device = 0
         self.regens_host = 0
@@ -320,7 +344,7 @@ class IceSheetCoupler:
         self._build_mats()
         self.steps_since_regen = 0
         self._gen += 1
-        self._drop_graphs()
+        self._rebind_graphs()
         return old
 
     def _build_mats(self) -> None:
@@ -328,7 +352,7 @@ class IceSheetCoupler:
         exact transpose of EvI (AvI), so one pack serves both; with sigma
         smoothing (host factory) the reverse direction is packed from its
         own canonical matrix (S is asymmetric)."""
-        for name in ("EvI", "AvI"):
+        for name in HOT:
             rev_name = "Iv" + name[0]
             fwd, rev = self.regen.pair(self.rm, name, self.cfg.params)
             self._mats[name] = fwd
@@ -339,7 +363,9 @@ class IceSheetCoupler:
 
     def mat(self, name: str):
         """Any of the six user matrices as a device apply; AvE/EvA build
-        lazily and drop at each regeneration like the rest."""
+        lazily and drop at each regeneration like the rest.  On the device
+        path the hot views (EvI, IvE, AvI, IvA) lie in buffers that every
+        regeneration reloads: a view is valid until the next one."""
         if name not in self._mats and name in ("AvE", "EvA"):
             self._mats["AvE"], self._mats["EvA"] = self.regen.pair(
                 self.rm, "AvE",
@@ -653,7 +679,6 @@ class IceSheetCoupler:
         -> (fI, fE_out, fA_out, H, bed, t, enth, stats, flags): with the SIA
         at ``substeps`` CFL substeps, ``flags`` the (2,) int32 (short,
         active substeps); another model has no budget, and flags (0, 0)."""
-        mats = self._mats_hot()
 
         def fn(H, bed, t, enth, fE_in):
             flags = []
@@ -666,7 +691,8 @@ class IceSheetCoupler:
                     flags.append(torch.stack([short.to(n.dtype), n]))
                     return state, fx
             fI, fE_out, fA_out, st, stats = self._couple_core(
-                *mats, IceSheetState(H=H, bed=bed, t=t, enth=enth), fE_in,
+                *self._mats_hot(), IceSheetState(H=H, bed=bed, t=t,
+                                                 enth=enth), fE_in,
                 ice_step=ice)
             if not flags:
                 flags.append(torch.zeros(2, dtype=torch.int32,
@@ -676,43 +702,63 @@ class IceSheetCoupler:
 
         return fn
 
-    def _drop_graphs(self) -> None:
-        """Drop the current graphs: each is released and kept, by budget,
-        for the next capture at that budget to replace (``_capture``)."""
-        for substeps, g in self._graphs.items():
-            g.release()
-            old = self._retired.pop(substeps, None)
-            if old is not None:
-                old.reset()
-            self._retired[substeps] = g
-        self._graphs = {}
+    def _rebind_graphs(self) -> None:
+        """Keep the compiled step's graphs for the matrices just built.  On
+        the device path the hot packs lie in the buffers the graphs read,
+        so each graph's dest-small launches only take the new live counts
+        and geometry (``StepGraph.rebind``), and ``rebinds`` counts the
+        regeneration.  A host-path regeneration (new tensors), or a hot
+        matrix whose live rows appear or vanish (``spmm_dest_small``
+        launches nothing over none), leaves every graph to be captured
+        again at its next run."""
+        if self.regen.path != "device":
+            self._stale.update(self._graphs)
+            return
+        small = [self._mats[n].pack.small for n in HOT]
+        live = tuple(c.n_live > 0 for c in small)
+        kept, self._live = live == self._live, live
+        if not kept:
+            self._stale.update(self._graphs)
+            return
+        graphs = [g for s, g in self._graphs.items() if s not in self._stale]
+        for g in graphs:
+            g.rebind(small, self.cfg.nv)
+        self.rebinds += bool(graphs)
 
     def _capture(self, substeps: int, inputs) -> StepGraph:
-        """A new graph of the step at budget ``substeps``; on the card it is
-        captured on the coupler's side stream into the memory pool of the
-        last generation's graph at that budget, which it replaces."""
+        """The graph of the step at budget ``substeps``, captured (on the
+        card on the coupler's side stream); a graph kept at that budget is
+        captured again over its own buffers and memory pool."""
         if self._capture_stream is None and inputs[0].is_cuda:
             self._capture_stream = torch.cuda.Stream(inputs[0].device)
-        return StepGraph(self._step_fn(substeps), inputs,
-                         stream=self._capture_stream,
-                         replaces=self._retired.pop(substeps, None))
+        g = self._graphs.pop(substeps, None)
+        self._stale.discard(substeps)
+        if g is None:
+            g = StepGraph(self._step_fn(substeps), inputs,
+                          stream=self._capture_stream)
+        else:
+            g.capture()
+        self._graphs[substeps] = g
+        if g.capture_ms is not None:
+            self.capture_ms.append(g.capture_ms)
+        return g
 
     def _run_compiled(self, substeps: int, state, fE_in):
         """One run of the compiled step at budget ``substeps`` (captured at
-        first use: a graph freezes the matrices, the ice model, the configs
-        and the inputs' layout, so a change of any drops the graphs) from
-        ``state`` ((H, bed, t, enth)); returns the step's static outputs."""
+        first use: a graph freezes the ice model, the configs and the
+        inputs' layout, so a change of any drops the graphs) from ``state``
+        ((H, bed, t, enth)); returns the step's static outputs."""
         inputs = (*state, fE_in)
-        key = (self._gen, self.ice_step, self.ice_cfg, self.cfg,
+        key = (self.ice_step, self.ice_cfg, self.cfg,
                tuple((x.shape, x.dtype) for x in inputs))
         if key != self._graph_key:
-            self._drop_graphs()
+            for g in self._graphs.values():
+                g.reset()
+            self._graphs, self._stale = {}, set()
             self._graph_key = key
         g = self._graphs.get(substeps)
-        if g is None:
-            g = self._graphs[substeps] = self._capture(substeps, inputs)
-            if g.capture_ms is not None:
-                self.capture_ms.append(g.capture_ms)
+        if g is None or substeps in self._stale:
+            g = self._capture(substeps, inputs)
         out = g.run(inputs)
         if g.graph is not None:
             self.replays += 1

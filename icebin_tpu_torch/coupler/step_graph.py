@@ -16,15 +16,15 @@ out first.
 A capture that fails raises: nothing falls back to running ``fn``
 eagerly on the card.
 
-Memory: on the card the caller gives the side stream (``stream``), and a
-caller that captures again and again (a coupler, once a matrix
-generation) gives the same one every time, so each warm-up reuses the
-blocks the last one freed on it.  It also names the graph the new one
-replaces (``replaces``, ``release``d: its static buffers freed, its graph
-kept): the new graph is captured into that graph's memory pool, whose
-blocks it takes over, and the old graph is then reset.  With a fresh
-stream and pool each time the card's reserved memory grows by both every
-capture, until a capture (which may not free cached memory) runs out.
+The graph is kept (``keep_graph=True``) beside its instantiation, so that
+``rebind`` can point its dest-small launches at a new matrix generation
+that the caller has loaded into the buffers the capture read
+(``ops.csr.CsrBuffers``): no warm-up, capture or instantiation.
+``capture`` captures ``fn`` again where more than that changed; the new
+graph takes over the memory pool of the one it replaces, which is then
+reset, and the warm-up runs on the side stream the caller gives
+(``stream``, the same one every time), so each capture reuses the blocks
+the last one freed.
 
 The regrid wrappers count their launches in Python (``.launches`` of
 ``ops.apply.spmm_dest_small`` and ``spmm_dest_ice``).  Under capture that
@@ -38,7 +38,8 @@ import time
 
 import torch
 
-from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+from icebin_tpu_torch.ops.apply import (rebind_dest_small, spmm_dest_ice,
+                                        spmm_dest_small)
 from icebin_tpu_torch.utils.trace import span
 
 __all__ = ["StepGraph"]
@@ -49,38 +50,45 @@ COUNTED = (spmm_dest_small, spmm_dest_ice)
 
 class StepGraph:
     """``fn(*inputs) -> tuple of tensors`` as one CUDA graph (module
-    docstring); ``capture_ms`` is the host time of the warm-up and capture
-    (None on the CPU, where ``graph`` is None)."""
+    docstring); ``capture_ms`` is the host time of the last warm-up and
+    capture (None on the CPU, where ``graph`` is None)."""
 
-    def __init__(self, fn, inputs, *, stream=None, replaces=None):
-        """On the card the warm-up and the capture run on ``stream``, and
-        the graph allocates from the pool of ``replaces`` (a released
-        ``StepGraph``, reset once this one is captured; a pool of its own
-        if None)."""
+    def __init__(self, fn, inputs, *, stream=None):
+        """On the card the warm-up and the capture run on ``stream``."""
         self.fn = fn
+        self.stream = stream
         self.inputs = tuple(x.clone() for x in inputs)
         self.outputs = None
         self.graph = None
         self.launches = {}
         self.capture_ms = None
-        try:
-            if self.inputs[0].device.type == "cuda":
-                if stream is None:
-                    raise ValueError("a capture on the card needs a side "
-                                     "stream")
-                old = None if replaces is None else replaces.graph
-                with span("step.capture"):
-                    self._capture(self.inputs[0].device, stream,
-                                  None if old is None else old.pool())
-        finally:
-            if replaces is not None:
-                replaces.reset()
+        #: the graph's dest-small launches by CSR, once ``rebind`` found them
+        self._found = {}
+        self.capture()
 
-    def _capture(self, dev, side, pool) -> None:
+    def capture(self) -> None:
+        """Capture ``fn`` over the static buffers (on the card; a no-op on
+        the CPU), into the memory pool of the graph it replaces."""
+        dev = self.inputs[0].device
+        if dev.type != "cuda":
+            return
+        if self.stream is None:
+            raise ValueError("a capture on the card needs a side stream")
+        old, self.graph, self.outputs = self.graph, None, None
+        self._found = {}
+        try:
+            with span("step.capture"):
+                self._capture(dev, None if old is None else old.pool())
+        finally:
+            if old is not None:
+                old.reset()
+
+    def _capture(self, dev, pool) -> None:
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(dev)
+        side = self.stream
         side.wait_stream(main)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.stream(side):
             self.fn(*self.inputs)                  # the warm-up
             before = [k.launches for k in COUNTED]
@@ -96,10 +104,31 @@ class StepGraph:
                 captured = [k.launches - n for k, n in zip(COUNTED, before)]
                 for k, n in zip(COUNTED, before):
                     k.launches = n
+            graph.instantiate()
         main.wait_stream(side)
         self.launches = dict(zip(COUNTED, captured))
         self.graph = graph
         self.capture_ms = 1e3 * (time.perf_counter() - t0)
+
+    def rebind(self, small, nv: int) -> int:
+        """Point the graph's dest-small launches at the new generation of
+        the CSRs ``small`` (each loaded into the buffers the capture read):
+        each launch over one of them takes the live count and geometry
+        ``spmm_dest_small`` would give it now (``nv``: the packs' field
+        batch).  Returns the launches updated (span ``step.rebind``,
+        attribute ``nodes``); 0 on the CPU, which has no graph."""
+        if self.graph is None:
+            return 0
+        want = self.launches.get(spmm_dest_small, 0)
+        with span("step.rebind") as sp:
+            n = sum(rebind_dest_small(self.graph, csr, nv, self._found, want)
+                    for csr in small if csr.n_live > 0)
+            if sp is not None:
+                sp.attrs["nodes"] = n
+        if n != want:
+            raise RuntimeError(f"rebind updated {n} of the graph's {want} "
+                               f"dest-small launches")
+        return n
 
     def run(self, inputs):
         """Copy ``inputs`` into the static buffers and run the step; returns
@@ -119,12 +148,6 @@ class StepGraph:
             for buf, o in zip(self.outputs, out):
                 buf.copy_(o)
         return self.outputs
-
-    def release(self) -> None:
-        """Free the static buffers but keep the graph, so that its pool's
-        blocks are free for the graph that ``replaces`` it; the graph is
-        not run again, and ``reset`` frees it."""
-        self.fn = self.inputs = self.outputs = None
 
     def reset(self) -> None:
         """Free the graph, its pool and the static buffers."""

@@ -62,6 +62,7 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+#include <vector>
 
 namespace {
 
@@ -450,6 +451,120 @@ int spmm_dest_ice(const void* rowptr, const void* cols, const void* vals,
                : launch_ice<false>(chunk, minb, grid, st, rp, cl, vl, wi, xs,
                                    o, nrows, nv, scale, nsrc, nchunks, al);
     if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rebind the dest-small launches of a captured CUDA graph to a new matrix
+// generation loaded into the same buffers: each kernel node of ``graph``
+// that runs a dest_small_kernel instance over ``rowptr`` gets the launch
+// dest_small would make now -- the grid (``nlive`` row blocks and the
+// zero-fill blocks), the block (warps[nv] warps, ``nv`` the node's own
+// field count), the shared memory and the ``nlive`` argument -- in the
+// graph and in its instantiation ``exec``, which must have been made from
+// ``graph``.  The kernel, its other arguments and so its summation order
+// are the node's.  ``warps`` holds ``nwarps`` entries, by field count.
+// ``nodes`` (room for ``cap``) holds the ``*count`` nodes to set; with
+// ``*count`` < 0 they are found first, by walking the graph (nodes of other
+// kernels, whose parameters this runtime may not read, are skipped), and
+// ``*count`` is set, so a caller that keeps ``nodes`` walks a graph once.
+int spmm_dest_small_rebind(void* graph, void* exec, const void* rowptr,
+                           int nlive, const int* warps, int nwarps,
+                           void** nodes, int cap, int* count) {
+  const void* small[] = {
+      reinterpret_cast<const void*>(dest_small_kernel<1, 1, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<1, 2, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<1, 4, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<2, 1, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<2, 2, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<2, 4, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<4, 1, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<4, 2, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<4, 4, float>),
+      reinterpret_cast<const void*>(dest_small_kernel<1, 1, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<1, 2, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<1, 4, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<2, 1, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<2, 2, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<2, 4, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<4, 1, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<4, 2, double>),
+      reinterpret_cast<const void*>(dest_small_kernel<4, 4, double>)};
+  // p: a node's parameters, true if it is a dest-small launch over rowptr
+  const auto ours = [&](cudaGraphNode_t node, cudaKernelNodeParams* p) {
+    if (cudaGraphKernelNodeGetParams(node, p) != cudaSuccess) {
+      cudaGetLastError();
+      return false;
+    }
+    bool f = false;
+    for (const void* k : small) f = f || p->func == k;
+    return f && p->kernelParams != nullptr
+           && *static_cast<const void* const*>(p->kernelParams[0]) == rowptr;
+  };
+  cudaError_t e;
+  cudaKernelNodeParams p;
+  if (*count < 0) {
+    size_t n = 0;
+    if ((e = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr,
+                               &n)) != cudaSuccess)
+      return static_cast<int>(e);
+    std::vector<cudaGraphNode_t> all(n);
+    if (n > 0 && (e = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph),
+                                        all.data(), &n)) != cudaSuccess)
+      return static_cast<int>(e);
+    int found = 0;
+    for (cudaGraphNode_t node : all) {
+      cudaGraphNodeType type;
+      if (cudaGraphNodeGetType(node, &type) != cudaSuccess
+          || type != cudaGraphNodeTypeKernel) {
+        cudaGetLastError();
+        continue;
+      }
+      if (!ours(node, &p)) continue;
+      if (found == cap) return static_cast<int>(cudaErrorInvalidValue);
+      nodes[found++] = node;
+    }
+    *count = found;
+  }
+  for (int i = 0; i < *count; ++i) {
+    const auto node = static_cast<cudaGraphNode_t>(nodes[i]);
+    if (!ours(node, &p)) return static_cast<int>(cudaErrorInvalidValue);
+    // dest_small_kernel's arguments, in its order
+    void** a = p.kernelParams;
+    const void* rp = *static_cast<const void* const*>(a[0]);
+    const void* cl = *static_cast<const void* const*>(a[1]);
+    const void* vl = *static_cast<const void* const*>(a[2]);
+    const void* wi = *static_cast<const void* const*>(a[3]);
+    const void* xs = *static_cast<const void* const*>(a[4]);
+    void* o = *static_cast<void* const*>(a[5]);
+    int nrows = *static_cast<const int*>(a[6]);
+    int nv = *static_cast<const int*>(a[7]);
+    int scale = *static_cast<const int*>(a[8]);
+    const void* lv = *static_cast<const void* const*>(a[9]);
+    int nl = nlive;
+    int al = *static_cast<const int*>(a[11]);
+    if (nv < 0 || nv >= nwarps || warps[nv] < 1 || warps[nv] > kMaxWarps
+        || nlive < 1 || nlive > nrows)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // dest_small's geometry for these operands
+    const int vw = nv % 4 == 0 ? 4 : (nv % 2 == 0 ? 2 : 1);
+    const int threads = warps[nv] * kWarp;
+    const long long vecs = static_cast<long long>(nrows) * nv / vw;
+    void* args[] = {&rp, &cl, &vl, &wi, &xs, &o, &nrows, &nv, &scale, &lv,
+                    &nl, &al};
+    cudaKernelNodeParams q = p;
+    q.gridDim = dim3(static_cast<unsigned>(nlive + (vecs + threads - 1)
+                                           / threads));
+    q.blockDim = dim3(threads);
+    q.sharedMemBytes = static_cast<unsigned>(warps[nv] * kWarp * vw
+                                             * sizeof(double));
+    q.kernelParams = args;
+    q.extra = nullptr;
+    if ((e = cudaGraphKernelNodeSetParams(node, &q)) != cudaSuccess
+        || (e = cudaGraphExecKernelNodeSetParams(
+                static_cast<cudaGraphExec_t>(exec), node, &q))
+               != cudaSuccess)
+      return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,7 @@ NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PI = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 #: C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
     "spmm_dest_small": ((_P,) * 6 + (_I,) * 3 + (_P,) + (_I,) * 3 + (_P,),
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "spmm_dest_small_f64": ((_P,) * 6 + (_I,) * 3 + (_P,) + (_I,) * 3
                             + (_P,), _I),
     "spmm_dest_ice": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
+    "spmm_dest_small_rebind": ((_P,) * 3 + (_I, _PI, _I, _PP, _I, _PI),
+                               _I),
     "clip_rect": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),
     "clip_poly": ((_P,) * 4 + (_I,) * 3 + (_P,), _I),
     "clip_rect_compact": ((_P,) * 4 + (_I,) * 2 + (_P,), _I),

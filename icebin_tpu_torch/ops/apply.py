@@ -32,6 +32,7 @@ groups (``:1323``).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -42,6 +43,7 @@ from icebin_tpu_torch.ops.csr import Csr, CsrPack, CsrView
 
 __all__ = ["spmm_dest_small", "spmm_dest_ice", "spmm_ref",
            "spmm_dest_small_ref", "small_geometry", "small_slices",
+           "rebind_dest_small",
            "ice_geometry", "apply_small", "apply_ice", "apply_small_ref",
            "apply_ice_ref", "apply_view"]
 
@@ -299,6 +301,30 @@ def spmm_dest_ice(csr: Csr, x: torch.Tensor, scale: bool = True,
 
 spmm_dest_small.launches = 0
 spmm_dest_ice.launches = 0
+
+
+def rebind_dest_small(graph, csr: Csr, nv: int, found: dict,
+                      cap: int) -> int:
+    """Give the dest-small launches over ``csr`` in a captured CUDA graph
+    (``torch.cuda.CUDAGraph(keep_graph=True)``, instantiated) the launch
+    ``spmm_dest_small`` makes for ``csr`` as it is now: the caller has
+    loaded a new pack into the buffers the graph was captured over, so only
+    the live-row count and ``small_geometry``'s warps of each launch's
+    field count (at most ``nv``) change.  ``found``, a dict the caller
+    keeps for ``graph``, holds each CSR's launches (at most ``cap``) once
+    the first call has walked the graph for them.  Returns the launches
+    updated."""
+    warps = (ctypes.c_int * (nv + 1))(
+        1, *(small_geometry(csr, k)[0] for k in range(1, nv + 1)))
+    key = csr.rowptr.data_ptr()
+    if key not in found:
+        found[key] = ((ctypes.c_void_p * max(cap, 1))(), ctypes.c_int(-1))
+    nodes, count = found[key]
+    status = _build.library().spmm_dest_small_rebind(
+        graph.raw_cuda_graph(), graph.raw_cuda_graph_exec(), key,
+        csr.n_live, warps, nv + 1, nodes, len(nodes), ctypes.byref(count))
+    _build.check(status, "spmm_dest_small_rebind")
+    return count.value
 
 
 def _apply(csr: Csr, f: torch.Tensor, nv: int, scale: bool, spmm,

@@ -17,10 +17,13 @@ Two ways in: ``csr_pack`` packs a host ``WeightedMatrix`` (host arrays,
 then copies), and ``csr_pack_sorted`` packs a deduplicated COO already
 on the device, sorted by (row, col), without leaving it: the same CSRs
 and weights bit for bit, the weights summed by ``ops.segsum`` in the
-order ``np.bincount`` sums them.
+order ``np.bincount`` sums them.  ``CsrBuffers`` holds one matrix's packs,
+generation after generation, at fixed device addresses (a captured CUDA
+graph reads them there).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -28,8 +31,8 @@ import torch
 
 from icebin_tpu_torch.utils.trace import span
 
-__all__ = ["Csr", "CsrPack", "CsrView", "csr_from_coo", "csr_pack",
-           "csr_pack_sorted", "csr_view_pair"]
+__all__ = ["Csr", "CsrPack", "CsrView", "CsrBuffers", "csr_from_coo",
+           "csr_pack", "csr_pack_sorted", "csr_view_pair"]
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -181,6 +184,59 @@ def csr_pack_sorted(rows: torch.Tensor, cols: torch.Tensor,
                   vals=vals_i.to(torch.float32), winv=_winv(wI),
                   n_dst=nice, n_src=nsmall)
         return CsrPack(small=small, ice=ice, wS=wS, wI=wI, nv=int(nv))
+
+
+class CsrBuffers:
+    """Device buffers one matrix's packs are loaded into, generation after
+    generation, so that each pack's tensors lie at the same addresses: the
+    rowptr, winv and weights of both CSRs, the small CSR's live rows, and
+    both CSRs' columns and values at ``capacity`` entries.  A CUDA graph
+    captured over one loaded pack reads every later one (the dest-small
+    launches' geometry aside, ``ops.apply.rebind_dest_small``)."""
+
+    def __init__(self, nsmall: int, nice: int, capacity: int, nv: int, *,
+                 device):
+        def empty(n, dtype):
+            return torch.empty(n, dtype=dtype, device=device)
+
+        i32, f32 = torch.int32, torch.float32
+        self.capacity = int(capacity)
+        self.nv = int(nv)
+        self.small = {"rowptr": empty(nsmall + 1, i32),
+                      "cols": empty(capacity, i32),
+                      "vals": empty(capacity, f32),
+                      "winv": empty(nsmall, f32), "live": empty(nsmall, i32)}
+        self.ice = {"rowptr": empty(nice + 1, i32),
+                    "cols": empty(capacity, i32),
+                    "vals": empty(capacity, f32), "winv": empty(nice, f32)}
+        self.wS = empty(nsmall, torch.float64)
+        self.wI = empty(nice, torch.float64)
+
+    def load(self, pack: CsrPack) -> CsrPack:
+        """Copy ``pack`` into the buffers (on the current stream, so after
+        whatever was enqueued to read the last pack) and return it as a
+        pack of exact-length slices of them."""
+        nnz = pack.small.vals.numel()
+        if nnz > self.capacity:
+            raise ValueError(f"a pack of {nnz} entries overflows buffers of "
+                             f"{self.capacity}")
+        if ((pack.nsmall, pack.nice, pack.nv)
+                != (len(self.wS), len(self.wI), self.nv)):
+            raise ValueError("the pack's shape is not the buffers'")
+
+        def into(buf, csr):
+            out = copy.copy(csr)          # keeps the live rows csr derived
+            for k, t in buf.items():
+                src = getattr(csr, k)
+                setattr(out, k, t[:src.numel()])
+                getattr(out, k).copy_(src)
+            return out
+
+        self.wS.copy_(pack.wS)
+        self.wI.copy_(pack.wI)
+        return CsrPack(small=into(self.small, pack.small),
+                       ice=into(self.ice, pack.ice), wS=self.wS, wI=self.wI,
+                       nv=pack.nv)
 
 
 @dataclasses.dataclass

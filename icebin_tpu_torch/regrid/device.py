@@ -150,6 +150,13 @@ class DeviceExchange:
         self.ocean = (None if ocean is None else
                       torch.as_tensor(np.asarray(ocean, bool), device=dev))
 
+    def max_entries(self, name: str) -> int:
+        """The most entries user matrix ``name`` can have, whatever the
+        elevation mask: an exchange cell gives one entry, or one for each
+        of its two elevation classes where E is a side of the matrix,
+        before duplicates merge (``DeviceRegridMatrices.coo``)."""
+        return (2 if "E" in name else 1) * self.iA.numel()
+
     def count_ocean_iced(self, elevmaskI) -> int:
         """Set and return ``ocean_iced``: the marked cells whose ice cell
         holds ice in ``elevmaskI`` (one read on the host)."""

@@ -1124,9 +1124,9 @@ def eager(cp):
 def test_graph_step_is_the_eager_step(cuda, cfl):
     """The compiled step (graph replays) against the eager _couple_core on
     the card: 5 stepwise steps then a fused run of 4, regenerating every 2
-    (each regeneration recaptures), bit for bit every step's outputs, the
-    state and every ledger row; a 5-year step whose CFL binds makes the
-    budget rerun on the card."""
+    (each regeneration rebinds the graphs), bit for bit every step's
+    outputs, the state and every ledger row; a 5-year step whose CFL binds
+    makes the budget rerun on the card."""
     year = 365.2425 * 86400.0
     kw = dict(dt=5 * year, dt_max=10 * year) if cfl else {}
     a, b = graph_toy(cuda, defer_ledger=True, **kw), eager(graph_toy(cuda,
@@ -1151,7 +1151,10 @@ def test_graph_step_is_the_eager_step(cuda, cfl):
         assert torch.equal(getattr(sc.state, k),
                            getattr(b.sheets["toy"].state, k)), k
     assert a.ledger.to_rows() == b.ledger.to_rows()
-    assert sc.replays >= 9 and len(sc.capture_ms) >= 4
+    # the graphs are kept across the 4 regenerations: each rebinds them,
+    # and a budget captures once
+    assert sc.replays >= 9 and sc.regens_device == 5 and sc.rebinds == 4
+    assert len(sc.capture_ms) == len(sc._graphs)
     assert (sc.reruns > 0) == cfl and (sc.budget > 1) == cfl
 
 
@@ -1309,12 +1312,12 @@ def test_regeneration_on_the_card_is_the_host_factory(cuda):
 
 
 def test_recaptures_reuse_their_memory(cuda):
-    """Twelve windows, each ending in a regeneration and so in a new
-    capture: each capture warms up on the coupler's one side stream and
-    takes over the memory pool of the graph it replaces, so the card's
-    reserved memory stops growing after the first generations (a new
-    stream and pool each time grew it by a capture's memory every
-    generation, until a capture ran out of memory)."""
+    """Twelve windows, each ending in a regeneration: the graph is kept
+    and rebound, not captured again, and the new packs are loaded into the
+    buffers it reads, so one capture serves them all and the card's
+    reserved memory does not grow after the first window (a new capture,
+    stream and pool a generation grew it until a capture ran out of
+    memory)."""
     cp = graph_toy(cuda)
     sc = cp.sheets["toy"]
     fE = torch.as_tensor(toy_forcing(cp.gr.nE, 0), device=cuda)
@@ -1323,6 +1326,49 @@ def test_recaptures_reuse_their_memory(cuda):
         cp.run_transient(lambda t, s: fE, 2, fused=True)
         torch.cuda.synchronize()
         reserved.append(torch.cuda.memory_reserved(cuda))
-    assert sc.regens_device == 13 and len(sc.capture_ms) == 12
-    assert set(sc._retired) == {sc.budget} and not sc._graphs
-    assert reserved[4:] == [reserved[3]] * 8, reserved
+    assert sc.regens_device == 13 and len(sc.capture_ms) == 1
+    assert sc.rebinds == 12 and list(sc._graphs) == [sc.budget]
+    assert reserved[1:] == [reserved[1]] * 11, reserved
+
+
+def test_rebound_graph_is_a_fresh_capture(cuda):
+    """Six generations from set masks, a window of 2 steps each: the
+    sheet that keeps its graph is bit for bit one that captures it afresh
+    every generation (the window's rows, last outputs and the state),
+    across rebinds where EvI's dest-small warps change (2 and 1 at the
+    level and spread masks); a generation with no ice (no live row: no
+    dest-small launch) and the one after it capture again."""
+    from icebin_tpu_torch.coupler.coupler import IceSheetCoupler
+    from icebin_tpu_torch.ops.apply import small_geometry
+
+    class Fresh(IceSheetCoupler):
+        def _rebind_graphs(self):
+            self._stale.update(self._graphs)
+
+    cp = graph_toy(cuda)
+    a = cp.sheets["toy"]
+    b = Fresh(cp.gr, "toy", cp.cfg, device=cuda)
+    nI, nE = cp.gr.sheets["toy"].specI.ncells, cp.gr.nE
+    rng = np.random.default_rng(3)
+    masks = {"level": np.full(nI, 750.0),
+             "spread": rng.uniform(0.0, 2000.0, nI),
+             "bare": np.full(nI, np.nan)}
+    fE = torch.stack([torch.as_tensor(toy_forcing(nE, k), device=cuda)
+                      for k in range(2)])
+    warps = []
+    for name in ("spread", "level", "spread", "bare", "level", "spread"):
+        for sc in (a, b):
+            sc.regen_matrices(elevmask=masks[name])
+        small = [a.mat(n).pack.small for n in ("EvI", "AvI")]
+        warps.append(tuple(small_geometry(c, 10)[0] * (c.n_live > 0)
+                           for c in small))
+        (ra, la), (rb, lb) = a.couple_window(fE), b.couple_window(fE)
+        assert ra.tobytes() == rb.tobytes(), name
+        for key in ("fI", "fE_out", "fA_out"):
+            assert same(la[key], lb[key]), (name, key)
+        for k in ("H", "enth", "t"):
+            assert torch.equal(getattr(a.state, k), getattr(b.state, k)), k
+    assert warps[:3] == [(1, 2), (2, 2), (1, 2)] and warps[3] == (0, 0)
+    assert a.rebinds == 3 and len(a.capture_ms) == 3
+    assert b.rebinds == 0 and len(b.capture_ms) == 6
+    assert a.replays == b.replays == 12

@@ -29,7 +29,7 @@ from icebin_tpu_torch.coupler.coupler import HostRegen, IceSheetCoupler
 from icebin_tpu_torch.coupler.e1ve0 import e1ve0_matrix
 from icebin_tpu_torch.coupler.ledger import Ledger
 from icebin_tpu_torch.grid.exchange import ExchangeGrid
-from icebin_tpu_torch.ops.csr import csr_pack, csr_pack_sorted
+from icebin_tpu_torch.ops.csr import CsrBuffers, csr_pack, csr_pack_sorted
 from icebin_tpu_torch.ops.segsum import segment_sum, segment_sum_ref
 from icebin_tpu_torch.regrid.device import (DeviceExchange,
                                             DeviceRegridMatrices,
@@ -163,6 +163,41 @@ def test_packs_bit_for_bit(sheets, sheet, mask):
         assert shape == M.shape
         same_packs(csr_pack(M, nv=16, device=CPU),
                    csr_pack_sorted(rows, cols, vals, shape, nv=16), name)
+
+
+@pytest.mark.parametrize("iced", ["every", "one"])
+@pytest.mark.parametrize("sheet", SHEETS)
+def test_hot_packs_fit_their_buffers(sheets, sheet, iced):
+    """At the extremes of the elevation mask (every ice cell iced, at
+    elevations across every class; one cell iced, the one with the most
+    exchange cells) EvI's and AvI's entries stay within the exchange
+    grid's bound (``DeviceExchange.max_entries``), and a pack loaded into
+    buffers of that capacity is the pack bit for bit, at the buffers'
+    addresses."""
+    gr, _ = sheets[sheet]
+    xd = DeviceExchange(gr, sheet, CPU)
+    nI = gr.sheets[sheet].specI.ncells
+    rng = np.random.default_rng(5)
+    if iced == "every":
+        mask = rng.uniform(-50.0, 4000.0, nI)
+    else:
+        mask = np.full(nI, np.nan)
+        mask[np.bincount(xd.iI.numpy(), minlength=nI).argmax()] = 750.0
+    rd = DeviceRegridMatrices(xd, torch.as_tensor(mask))
+    for name in ("EvI", "AvI"):
+        rows, cols, vals, shape = rd.coo(name, RegridParams())
+        cap = xd.max_entries(name)
+        assert 0 < len(vals) <= cap, (name, len(vals), cap)
+        if iced == "every" and rd.nhc > 1:      # the bound is nearly met
+            assert len(vals) > cap // 2, (name, len(vals), cap)
+        pack = csr_pack_sorted(rows, cols, vals, shape, nv=16)
+        buf = CsrBuffers(*shape, cap, 16, device=CPU)
+        got = buf.load(pack)
+        same_packs(got, pack, f"{name} loaded")
+        assert got.small.vals.data_ptr() == buf.small["vals"].data_ptr()
+        assert got.small.live.data_ptr() == buf.small["live"].data_ptr()
+        assert got.ice.cols.data_ptr() == buf.ice["cols"].data_ptr()
+        assert got.wI is buf.wI
 
 
 @pytest.mark.parametrize("mask", MASKS)

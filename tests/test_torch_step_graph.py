@@ -23,6 +23,7 @@ import torch
 
 import icebin_tpu_torch as port
 from icebin_tpu_torch.models import ice_sheet as sia
+from icebin_tpu_torch.ops.apply import small_geometry
 
 from test_torch_coupler import (_DERIVED, CPU, FIELD_TOL, HCDEFS,
                                 LEDGER_TOL, close, forcing_np, make_ref,
@@ -141,13 +142,14 @@ N_STEPS = 7
 REGEN = 3
 
 
-def cfl_port(dt=CFL_DT, **kw):
+def cfl_port(dt=CFL_DT, sheet_cls=port.IceSheetCoupler, **kw):
     specA, specI = toy_specs()
     gr = port.GCMRegridder(specA, hcdefs=HCDEFS, device=CPU)
     gr.add_sheet("toy", specI, subdiv=1)
-    cp = port.GCMCoupler(gr, port.CouplerConfig(dt=dt, regen_every=REGEN,
-                                                **kw),
-                         device=CPU)
+    cfg = port.CouplerConfig(dt=dt, regen_every=REGEN, **kw)
+    cp = port.GCMCoupler(gr, cfg, device=CPU,
+                         sheets={"toy": sheet_cls(gr, "toy", cfg,
+                                                  device=CPU)})
     sc = cp.sheets["toy"]
     sc.ice_cfg = dataclasses.replace(sc.ice_cfg, dt_max=CFL_DT_MAX)
     sc.set_held_state(np.random.default_rng(7).uniform(0.5, 2.0,
@@ -266,3 +268,112 @@ def test_outputs_survive_the_next_step():
         assert torch.equal(getattr(state, k), v), k
     assert torch.equal(stats, stats0)
     assert not torch.equal(sc.state.H, state.H)   # the step did move on
+
+
+# -- section 3: the graphs kept across regenerations -----------------------
+
+class FreshGraphs(port.IceSheetCoupler):
+    """A sheet whose every regeneration leaves its graphs to be captured
+    again, as each generation was before the graphs were kept: the oracle
+    of the kept graphs."""
+
+    def _rebind_graphs(self):
+        self._stale.update(self._graphs)
+
+
+def counted_captures(sc):
+    """Count ``sc``'s captures (on the CPU ``capture_ms`` stays empty: no
+    graph is captured there) in ``sc.captures``."""
+    capture = sc._capture
+    sc.captures = 0
+
+    def counted(*a):
+        sc.captures += 1
+        return capture(*a)
+
+    sc._capture = counted
+    return sc
+
+
+def kept_and_fresh(dt=CFL_DT):
+    """Two CFL-bound toys, one with kept graphs, one recapturing at every
+    regeneration (``FreshGraphs``), each counting its captures."""
+    out = []
+    for cls in (port.IceSheetCoupler, FreshGraphs):
+        cp = cfl_port(dt=dt, sheet_cls=cls, defer_ledger=True)
+        counted_captures(cp.sheets["toy"])
+        out.append(cp)
+    return out
+
+
+def scaled_smb(cp, scale):
+    """The toy's forcing with its smb row ``scale`` times its size: > 0
+    grows the ice (the dome thickens and flows out), < 0 thins it off its
+    margins."""
+    def fn(t, sheet):
+        f = forcing_np(t, cp.gr.nE)
+        f[0] = scale * np.abs(f[0])
+        return torch.as_tensor(f)
+    return fn
+
+
+#: the smb scale of each window: 3 growing the ice, 4 shrinking it
+GROW_SHRINK = (20.0, 20.0, 20.0, -12.0, -12.0, -12.0, -12.0)
+
+
+def test_kept_graph_is_a_fresh_capture():
+    """A fused run of 7 windows, each ending in a regeneration, whose ice
+    grows and then shrinks (the hot matrices' live rows and entries move
+    both ways, AvI's dest-small warps with them): the sheet that keeps its
+    graphs across regenerations is bit for bit the one that captures them
+    again every generation (every window's outputs, the state, every
+    ledger row); each of its regenerations but the first build rebinds,
+    and it captures once a budget."""
+    a, b = kept_and_fresh()
+    sa, sb = a.sheets["toy"], b.sheets["toy"]
+    seen = []
+    for scale in GROW_SHRINK:
+        oa = a.run_transient(scaled_smb(a, scale), REGEN, fused=True)
+        ob = b.run_transient(scaled_smb(b, scale), REGEN, fused=True)
+        same_outputs(oa["toy"], ob["toy"], f"smb x {scale}")
+        same_state(sa.state, sb.state)
+        seen.append(tuple((sa.mat(n).pack.small.n_live,
+                           sa.mat(n).pack.small.vals.numel(),
+                           small_geometry(sa.mat(n).pack.small, 10)[0])
+                          for n in ("EvI", "AvI")))
+    assert a.ledger.to_rows() == b.ledger.to_rows()
+    assert np.array_equal(sa.held_E, sb.held_E)
+    for i in range(2):                 # live rows and entries: up, then down
+        for j in range(2):
+            track = [s[i][j] for s in seen]
+            assert max(track) > track[0] and track[-1] < max(track), track
+    assert len({s[1][2] for s in seen}) > 1, seen     # AvI's warps moved
+    regens = len(GROW_SHRINK)
+    assert sa.regens_device == sb.regens_device == regens + 1
+    assert sa.rebinds == regens and sb.rebinds == 0
+    assert sa.captures == len(sa._graphs) and not sa._stale
+    assert sb.captures > sa.captures and sa.budget == sb.budget > 1
+
+
+def test_kept_graph_recaptures_when_live_rows_vanish():
+    """A generation with no ice (no live row in EvI or AvI: the dest-small
+    apply launches nothing) and the next, with ice again, change what the
+    step launches, so each captures the graph again; the generations
+    between rebind.  Bit for bit the sheet that recaptures every
+    generation."""
+    a, b = kept_and_fresh(dt=30.0 * DAY)
+    sa, sb = a.sheets["toy"], b.sheets["toy"]
+    bare = np.full(sa.gr.sheets["toy"].specI.ncells, np.nan)
+    for k in range(6):
+        for cp in (a, b):
+            out = cp.run_transient(forcing(cp), REGEN, fused=True)["toy"]
+            if k == 2:
+                cp.sheets["toy"].regen_matrices(elevmask=bare)
+            cp.last = out
+        same_outputs(a.last, b.last, f"window {k}")
+        same_state(sa.state, sb.state)
+    assert a.ledger.to_rows() == b.ledger.to_rows()
+    assert sa.budget == 1
+    # captures: the first, the bare generation's, the one after it
+    assert sa.captures == 3 and sb.captures == 6
+    assert sa.regens_device == 8 and sa.rebinds == 8 - 1 - 2
