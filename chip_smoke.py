@@ -6,8 +6,8 @@
 The main path is the coupled SeaRISE Greenland 5 km (304 x 544 polar
 stereographic cells) x ModelE 2x2.5 (144 x 90, 5 elevation classes) system
 that bench.py drives: the exchange grid is built through the clip kernel,
-then a GCMCoupler runs 6 stepwise coupling steps in bench.py's production
-mode (deferred ledger) with a matrix regeneration (and an E1vE0 remap of
+then a GCMCoupler runs 6 stepwise coupling steps (each a window of one
+step) with a matrix regeneration (and an E1vE0 remap of
 GCM-held state) every 3, then one fused window.  Phases 10 and 11 add
 Antarctica 5 km (config #5) and drive both sheets through the ModelE C
 ABI.  On the card every single-device SIA sheet runs the compiled step (a
@@ -71,7 +71,7 @@ Phases, each of which exits non-zero on failure:
            on all of Antarctica's pairs; its
            exchange build with the launch counters set to 0 just before
            and read just after, against the f64 host build; one
-           GCMCoupler on both sheets (6 stepwise steps, deferred ledger,
+           GCMCoupler on both sheets (6 stepwise steps,
            then a fused window, counters likewise); steps/s as bench.py
            measures them (each sheet alone, then both); Antarctica's
            EvI/IvE/AvI/IvA through phase 4's checks at nv = 16 and 64;
@@ -157,7 +157,7 @@ Phases, each of which exits non-zero on failure:
            SIA at a fixed substep budget as one CUDA graph a budget, kept
            and rebound across regenerations) against the eager
            _couple_core: at config
-           #3's full width 10 stepwise steps (deferred ledger) and a fused
+           #3's full width 10 stepwise steps and a fused
            window of 5, regenerating every 5, every step's fI, fE_out,
            fA_out, H, enth and all 15 ledger entries bit for bit; one
            steady step of each under torch.profiler (device busy ms,
@@ -400,9 +400,8 @@ def phase_main(specA, specI, device, counters):
         k.launches = 0
     gr = GCMRegridder(specA, HCDEFS, device=device)
     _, build_ms = wall_ms(lambda: gr.add_sheet("greenland", specI, subdiv=2))
-    # the production stepwise mode (bench.py's): ledger rows stay device
-    # tensors until one batched fetch
-    cfg = CouplerConfig(dt=DT, regen_every=REGEN, defer_ledger=True)
+    # per-step windows (one window of one step each), then a fused window
+    cfg = CouplerConfig(dt=DT, regen_every=REGEN)
     cp, init_ms = wall_ms(lambda: GCMCoupler(gr, cfg, device=device))
     sc = cp.sheets["greenland"]
     held = np.random.default_rng(1).uniform(0.5, 2.0, (2, gr.nE))
@@ -416,6 +415,7 @@ def phase_main(specA, specI, device, counters):
         step_ms.append(ms)
         # a step that regenerates or captures the compiled step's graph
         steady.append((k + 1) % REGEN and len(sc.capture_ms) == n_cap)
+    n_stepwise = len(cp.ledger.to_rows())
     fused = lambda t, s: torch.as_tensor(forcing(gr.nE, seed=int(t // DT)),
                                          device=device)
     _, fused_ms = wall_ms(lambda: cp.run_transient(fused, REGEN, fused=True))
@@ -427,17 +427,17 @@ def phase_main(specA, specI, device, counters):
         f"{REGEN} and {2 * REGEN}; capture ms {sc.capture_ms}), fused "
         f"window of {REGEN} {fused_ms:.1f}")
     plain = [m for m, ok in zip(step_ms, steady) if ok]
-    say(f"coupler: {1e3 / np.median(plain):.2f} steps/s stepwise with the "
-        f"deferred ledger (median of the steps that neither regenerate nor "
-        f"capture the compiled step), "
+    say(f"coupler: {1e3 / np.median(plain):.2f} steps/s stepwise (median "
+        f"of the steps that neither regenerate nor capture the compiled "
+        f"step), "
         f"{1e3 * REGEN / fused_ms:.2f} steps/s in the fused window (its "
         f"closing regeneration included)")
     say(f"launch counts in the main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched by the main path")
 
-    check(len(cp.ledger._pending) == 2 * REGEN,
-          "the stepwise rows did not go through the deferred ledger")
+    check(n_stepwise == 2 * REGEN,
+          f"{n_stepwise} ledger rows from {2 * REGEN} stepwise steps")
     rows = cp.ledger.to_rows()
     check(len(rows) == 3 * REGEN, f"{len(rows)} ledger rows")
     worst = 0.0
@@ -1046,7 +1046,7 @@ def multisheet_rates(gr, cfg, device):
     that never regenerates, sub-couplers sharing its sheet objects for each
     sheet alone, one forcing for both; per configuration a warm loop, then
     the two-point difference of the fastest of 3 loops of MS_N1 and of
-    MS_N2 steps, each loop ending in the deferred ledger's flush; the
+    MS_N2 steps, each step booking its row from its own fetch; the
     spread is the range of the 3 pairs' own differences.  The timed rows
     must keep the transport identity."""
     import dataclasses
@@ -1060,7 +1060,6 @@ def multisheet_rates(gr, cfg, device):
         t = time.perf_counter()
         for _ in range(n):
             c.couple({name: fE for name in c.sheets})
-        c.ledger.flush()
         return time.perf_counter() - t
 
     run_loop(MS_N1, both)
@@ -1089,7 +1088,7 @@ def multisheet_rates(gr, cfg, device):
                       tag=f"multisheet profile, {key}")
     say(f"multisheet: {rates['greenland']:.2f} steps/s Greenland alone, "
         f"{rates['antarctica']:.2f} Antarctica alone, {rates['both']:.2f} "
-        f"both (stepwise, deferred ledger, no regeneration; two-point over "
+        f"both (stepwise, no regeneration; two-point over "
         f"{MS_N1} and {MS_N2} steps, fastest of 3)")
     return rates
 
@@ -1130,13 +1129,14 @@ def phase_multisheet(specA, specG, xg_green, device, counters):
 
     for k in counters:
         k.launches = 0
-    cfg = CouplerConfig(dt=DT, regen_every=REGEN, defer_ledger=True)
+    cfg = CouplerConfig(dt=DT, regen_every=REGEN)
     cp, init_ms = wall_ms(lambda: GCMCoupler(gr, cfg, device=device))
     step_ms = []
     for k in range(2 * REGEN):
         fE = torch.as_tensor(forcing(gr.nE, seed=k), device=device)
         out, ms = wall_ms(lambda: cp.couple({n: fE for n in SHEETS}))
         step_ms.append(ms)
+    n_stepwise = len(cp.ledger.to_rows())
     fused = lambda t, s: torch.as_tensor(forcing(gr.nE, seed=int(t // DT)),
                                          device=device)
     out, fused_ms = wall_ms(lambda: cp.run_transient(fused, REGEN,
@@ -1150,8 +1150,8 @@ def phase_multisheet(specA, specG, xg_green, device, counters):
     for name in ("spmm_dest_ice", "spmm_dest_small"):
         check(launches[name] > 0, f"the two-sheet coupler did not launch "
                                   f"{name}")
-    check(len(cp.ledger._pending) == 2 * REGEN * len(SHEETS),
-          "the stepwise rows did not go through the deferred ledger")
+    check(n_stepwise == 2 * REGEN,
+          f"{n_stepwise} ledger rows from {2 * REGEN} two-sheet steps")
     rows = cp.ledger.to_rows()
     check(len(rows) == 3 * REGEN, f"{len(rows)} ledger rows")
     check_ledger(rows, SHEETS, "multisheet")
@@ -2269,10 +2269,10 @@ def same_results(oa, ob, a, b, what):
 
 
 def compiled_pair(gr, device, held=None, **kw):
-    """A compiled and an eager GCMCoupler on ``gr`` with one config
-    (deferred ledger) and the same held EC state."""
+    """A compiled and an eager GCMCoupler on ``gr`` with one config and
+    the same held EC state."""
     from icebin_tpu_torch import CouplerConfig, GCMCoupler
-    cfg = CouplerConfig(**{"dt": DT, "defer_ledger": True, **kw})
+    cfg = CouplerConfig(**{"dt": DT, **kw})
     a = GCMCoupler(gr, cfg, device=device)
     b = eager(GCMCoupler(gr, cfg, device=device))
     if held is not None:
@@ -2495,7 +2495,7 @@ def phase_regen(gr, device):
         def _regen_on_device(self):
             return False
 
-    cfg = CouplerConfig(dt=DT, regen_every=1, defer_ledger=True)
+    cfg = CouplerConfig(dt=DT, regen_every=1)
     held = np.random.default_rng(19).uniform(0.5, 2.0, (2, gr.nE))
     segment_sum.launches = 0
     for name in SHEETS:
@@ -2596,7 +2596,7 @@ def phase_rebind(gr, device):
     from icebin_tpu_torch.coupler.step_graph import StepGraph
     from icebin_tpu_torch.ops.apply import spmm_dest_small
     t_phase = time.perf_counter()
-    cfg = CouplerConfig(dt=DT, regen_every=1 << 30, defer_ledger=True)
+    cfg = CouplerConfig(dt=DT, regen_every=1 << 30)
     cp = GCMCoupler(gr, cfg, device=device)
     fn = lambda t, s: torch.as_tensor(forcing(gr.nE, seed=int(t // DT)),
                                       device=device)

@@ -23,11 +23,10 @@ __all__ = ["save_checkpoint", "load_checkpoint"]
 
 
 def save_checkpoint(path: str, coupler) -> None:
-    """Write ``coupler``'s state to ``path``; reading the ledger flushes the
-    rows a deferred ledger still holds on the device.  A mesh coupler
-    saves the gathered whole-lattice state (every rank calls this; rank 0
-    writes, and the others wait until the file is there), so its
-    checkpoint is a single-device one."""
+    """Write ``coupler``'s state to ``path``, with every ledger row booked
+    so far.  A mesh coupler saves the gathered whole-lattice state (every
+    rank calls this; rank 0 writes, and the others wait until the file is
+    there), so its checkpoint is a single-device one."""
     arrs = {"time": np.asarray(coupler.time),
             "ledger": np.frombuffer(
                 json.dumps(coupler.ledger.to_rows()).encode(), dtype=np.uint8)}

@@ -12,31 +12,33 @@ Differences from the reference:
 
 * The device is the tensors' device (given explicitly to the constructors);
   the reference's engine strings ("pallas"/"xla"/"auto") are gone, and
-  ``CouplerConfig.nv`` replaces ``pallas_nv``.  ``prods_passes`` is
-  accepted and ignored: the kernels always sum in f64.
+  ``CouplerConfig.nv`` replaces ``pallas_nv``.
 * Mass and energy books (mfac, ledger sums) are always f64.
+* A sheet steps only through its window (``launch_window`` enqueues K
+  steps, ``finish_window`` fetches their K ledger rows in one copy), and
+  ``GCMCoupler`` runs and books every window in one routine (``_window``):
+  ``couple`` is a window of one, ``run_transient(fused=True)`` windows
+  bounded by the regeneration cadence.
 * The compiled step (the reference's ``jax.jit`` of ``_couple_core``) is a
   CUDA graph (``coupler.step_graph``): a sheet whose matrices are the
   single-device ``CsrView`` packs and whose ice model is fusible by the
-  reference's rule (the SIA step, or a model marked ``jittable``;
-  ``_fusible`` at ``coupler.py:485-493``) captures ``_couple_core`` with
-  the SIA at a fixed budget of CFL substeps (``advance(...,
-  substeps=s)``), once per budget, and replays it.  The graph is kept
-  across regenerations: on the device path the new packs are loaded into
-  the buffers it reads and its dest-small launches are rebound in place
-  (``_rebind_graphs``); a host-path regeneration captures it again.
-  ``couple`` replays one step and reads (short, substeps) back in one
-  small fetch; ``couple_window`` replays the K steps back to back and
-  fetches the K ledger rows and flags once at the end, so a window is
-  one sync, as the reference's ``lax.scan`` is.  A step or window whose
-  budget fell short reruns from the same start at twice the budget (at
-  most ``n_substeps_max``); the budget then starts at the most substeps
-  seen.  The graph runs the eager step's operations in its order, so its
-  results are the eager step's bit for bit.  On the CPU the same loop
-  runs the budgeted step eagerly.  Mesh-sharded views and other models
-  (DISMAL) run ``_couple_core`` eagerly, as there; which models a fused
-  run takes window by window is the reference's rule too, so the two
-  packages dump and checkpoint on the same steps.
+  reference's rule (``_model_fusible``) captures ``_couple_core`` with the
+  SIA at a fixed budget of CFL substeps (``advance(..., substeps=s)``),
+  once per budget, and replays it.  The graph is kept across
+  regenerations: on the device path the new packs are loaded into the
+  buffers it reads and its dest-small launches are rebound in place
+  (``_rebind_graphs``); a host-path regeneration captures it again.  A
+  window replays its K steps back to back and reads its rows and (short,
+  substeps) flags once at the end, so a window is one sync, as the
+  reference's ``lax.scan`` is.  A window whose budget fell short reruns
+  from its start at a larger budget, and later windows start at the most
+  substeps seen (``finish_window``).  The graph runs the eager
+  step's operations in its order, so its results are the eager step's bit
+  for bit.  On the CPU the same loop runs the budgeted step eagerly.
+  Mesh-sharded views and other models (DISMAL) run ``_couple_core``
+  eagerly, as there; which models a fused run takes window by window is
+  the reference's rule too, so the two packages dump and checkpoint on the
+  same steps.
 * Fields reach the writer through ``.cpu().numpy()``.
 * Regeneration runs on the device (``regrid.device``) for a single-device
   sheet without sigma smoothing: the sheet's exchange grid is uploaded
@@ -112,11 +114,8 @@ class CouplerConfig:
     #: fields per kernel call; the 8-field forcing and 10-field harvest
     #: each ride one call
     nv: int = 16
-    #: accepted for API parity with the reference; the kernels always sum
-    #: in f64, so there is no accuracy mode to select
-    prods_passes: Optional[int] = None
-    #: True = ``couple`` books its ledger row without a device->host sync
-    #: (``Ledger.post_deferred``); the books are identical
+    #: accepted and has no effect: every window books its rows from one
+    #: fetch
     defer_ledger: bool = False
 
 
@@ -568,30 +567,6 @@ class IceSheetCoupler:
     def _mats_hot(self):
         return self.mat("IvE"), self.mat("EvI"), self.mat("AvI")
 
-    def couple(self, t: float, fE_in: torch.Tensor, ledger: Ledger):
-        """fE_in: (n_contract_in, nE) GCM fields on the E grid, GCM units,
-        on this coupler's device.  Returns E/A-grid outputs and
-        diagnostics.  A fusible sheet runs the compiled step (the module
-        docstring), any other ``_couple_core`` eagerly."""
-        if self._fusible():
-            fI, fE_out, fA_out, new_state, stats = self._couple_compiled(
-                fE_in)
-        else:
-            fI, fE_out, fA_out, new_state, stats = self._couple_core(
-                *self._mats_hot(), self.state, fE_in)
-        self.state = new_state
-        keys = tuple(f"{self.sheet}.{k}" for k in self.STAT_KEYS)
-        if self.cfg.defer_ledger:
-            ledger.post_deferred(keys, stats)
-        else:
-            for k, v in zip(keys, stats.cpu().tolist()):
-                ledger.post(k, v)
-        self.steps_since_regen += 1
-        remap = self._regen_if_due(ledger)
-        fhc, elevE = self.topo_fields()
-        return {"fI": fI, "fE_out": fE_out, "fA_out": fA_out,
-                "E1vE0": remap, "fhc": fhc, "elevE": elevE}
-
     def _regen_if_due(self, ledger: Ledger):
         """Regenerate matrices + E1vE0-remap held state when due; returns
         the E1vE0 remap or None."""
@@ -620,20 +595,24 @@ class IceSheetCoupler:
         return self.rm.fhc(), self.rm.elevE()
 
     def couple_window(self, fE_seq: torch.Tensor):
-        """K coupling steps on fixed matrices (the caller bounds K by the
-        regen cadence and regenerates at the boundary).  fE_seq:
+        """K coupling steps on fixed matrices, the only way a sheet steps
+        (the caller bounds K by the regen cadence and regenerates at the
+        boundary; a per-step run's window is one step).  fE_seq:
         (K, n_contract_in, nE).  Returns (stats (K, 15) f64 host array,
-        dict with the LAST step's fI/fE_out/fA_out).  Compiled, the K steps
-        are K graph replays with no host read between them and one fetch
-        at the end (a window whose budget fell short runs again from its
-        start at a larger budget); eager, the K ``_couple_core`` steps and
-        one fetch.  ``launch_window`` and ``finish_window`` are its two
-        halves: the first reads nothing on the host."""
+        dict with the LAST step's fI/fE_out/fA_out, copies that alias no
+        buffer of the compiled step).  Compiled, the K steps are K graph
+        replays with no host read between them and one fetch at the end (a
+        window whose budget fell short runs again from its start at a
+        larger budget); eager, the K ``_couple_core`` steps and one fetch.
+        ``launch_window`` and ``finish_window`` are its two halves: the
+        first reads nothing on the host and moves no state, so a capture
+        that fails raises before anything is taken or booked."""
         return self.finish_window(self.launch_window(fE_seq))
 
     def launch_window(self, fE_seq: torch.Tensor) -> "_Window":
-        """Enqueue ``couple_window``'s K steps from the current state;
-        ``finish_window`` fetches them and takes them as this sheet's."""
+        """Enqueue ``couple_window``'s K steps from the current state, at
+        the current budget on the compiled step; ``finish_window`` fetches
+        them and takes them as this sheet's."""
         with span("window.launch", sheet=self.sheet):
             if self._fusible():
                 return self._window_compiled(fE_seq, self.budget)
@@ -648,7 +627,10 @@ class IceSheetCoupler:
                            state)
 
     def finish_window(self, w: "_Window"):
-        """The window's one fetch; see ``couple_window``."""
+        """The window's one fetch, and the budget rule: a compiled window
+        that fell short runs again at ``min(2 * budget, n_substeps_max)``,
+        and the budget rises to the most substeps seen; see
+        ``couple_window``."""
         with span("window.fetch", sheet=self.sheet):
             host = w.rows.cpu().numpy()
         if w.budget is not None:
@@ -666,13 +648,19 @@ class IceSheetCoupler:
 
     # -- the compiled step ---------------------------------------------------
 
+    def _model_fusible(self) -> bool:
+        """The model half of the reference's ``_fusible``
+        (``coupler.py:485-493``): the ice model is the SIA step or marked
+        ``jittable``."""
+        return (self.ice_step is step_coupled
+                or getattr(self.ice_step, "jittable", False))
+
     def _fusible(self) -> bool:
-        """The reference's ``_fusible`` (``coupler.py:485-493``): the hot
-        matrices are the single-device packs (not a mesh rank's views) and
-        the ice model is the SIA step or marked ``jittable``."""
+        """Whether this sheet runs the compiled step: the hot matrices are
+        the single-device packs (not a mesh rank's views) and the model is
+        fusible (``_model_fusible``)."""
         return (all(isinstance(m, CsrView) for m in self._mats_hot())
-                and (self.ice_step is step_coupled
-                     or getattr(self.ice_step, "jittable", False)))
+                and self._model_fusible())
 
     def _step_fn(self, substeps: int):
         """The compiled step over flat tensors: fn(H, bed, t, enth, fE_in)
@@ -763,27 +751,6 @@ class IceSheetCoupler:
         if g.graph is not None:
             self.replays += 1
         return out
-
-    def _couple_compiled(self, fE_in):
-        """``_couple_core``'s results for one step from ``self.state``
-        through the compiled step, each a copy of the graph's output; one
-        small fetch reads (short, substeps), and a short step runs again at
-        a larger budget."""
-        n_max = self.ice_cfg.n_substeps_max
-        s = self.budget
-        st = self.state
-        while True:
-            out = self._run_compiled(s, (st.H, st.bed, st.t, st.enth), fE_in)
-            short, n = out[8].tolist()
-            if not short or s >= n_max:
-                break
-            s = min(2 * s, n_max)
-            self.reruns += 1
-        self.budget = max(self.budget, n)
-        fI, fE_out, fA_out, H, bed, t, enth, stats = (x.clone()
-                                                      for x in out[:8])
-        return (fI, fE_out, fA_out,
-                IceSheetState(H=H, bed=bed, t=t, enth=enth), stats)
 
     def _window_compiled(self, fE_seq, substeps: int) -> "_Window":
         """K compiled steps from ``self.state`` at budget ``substeps``, back
@@ -884,10 +851,12 @@ class GCMCoupler:
         self.writer = writer
         self.time = 0.0
 
-    def _dump(self, fE_in: Dict[str, torch.Tensor], results) -> None:
-        """One writer dump of every sheet's forcing and outputs, with the
-        latest ledger row (the reference's fields and names); on a mesh
-        every rank gathers the ice fields and rank 0 writes."""
+    def _dump(self, time: float, fE_in: Dict[str, torch.Tensor],
+              results) -> None:
+        """One writer dump, stamped ``time``, of every sheet's forcing and
+        outputs, with the latest ledger row (the reference's fields and
+        names); on a mesh every rank gathers the ice fields and rank 0
+        writes."""
         fields = {}
         for name, r in results.items():
             fields[f"{name}.fE_in"] = fE_in[name]
@@ -895,76 +864,83 @@ class GCMCoupler:
             for key in ("fE_out", "fA_out"):
                 fields[f"{name}.{key}"] = r[key]
         if self.mesh is None or self.mesh.rank == 0:
-            self.writer.dump(self.time, {k: v.detach().cpu().numpy()
-                                         for k, v in fields.items()},
+            self.writer.dump(time, {k: v.detach().cpu().numpy()
+                                    for k, v in fields.items()},
                              self.ledger.to_rows()[-1])
 
-    def couple(self, gcm_ovalsE: Dict[str, torch.Tensor]):
-        """One coupling step for every sheet; gcm_ovalsE maps sheet name ->
-        (n_in, nE) tensor on the coupler's device."""
-        self.ledger.open_step(self.time)
-        results = {name: sc.couple(self.time, gcm_ovalsE[name], self.ledger)
-                   for name, sc in self.sheets.items()}
-        if self.writer is not None:
-            self._dump(gcm_ovalsE, results)
-        self.time += self.cfg.dt
+    def _window(self, k: int, fE_seq: Callable[[str], torch.Tensor],
+                stamp: Optional[float] = None):
+        """Run and book one window of ``k`` steps for every sheet (span
+        ``window``); ``fE_seq(name)`` gives the sheet's (k, n_in, nE)
+        forcing.  Every sheet's window is launched before any is finished,
+        so a compiled window is one host sync (more only where a budget
+        fell short); then the k ledger rows are opened and posted, the time
+        advances, each sheet regenerates when due (E1vE0, the held state's
+        remap) and takes its topography, and the writer dumps the last
+        step, stamped ``stamp`` (default: the window's end).  Returns the
+        last step's results by sheet."""
+        dt = self.cfg.dt
+        with span("window"):
+            t0 = self.time
+            fE_last, pending, stats, results = {}, {}, {}, {}
+            for name, sc in self.sheets.items():
+                seq = fE_seq(name)
+                fE_last[name] = seq[-1]
+                pending[name] = sc.launch_window(seq)
+            for name, sc in self.sheets.items():
+                stats[name], results[name] = sc.finish_window(pending[name])
+            for i in range(k):
+                self.ledger.open_step(t0 + i * dt)
+                for name in self.sheets:
+                    for j, key in enumerate(IceSheetCoupler.STAT_KEYS):
+                        self.ledger.post(f"{name}.{key}", stats[name][i, j])
+            self.time += k * dt
+            for name, sc in self.sheets.items():
+                results[name]["E1vE0"] = sc._regen_if_due(self.ledger)
+                results[name]["fhc"], results[name]["elevE"] = \
+                    sc.topo_fields()
+            if self.writer is not None:
+                self._dump(self.time if stamp is None else stamp, fE_last,
+                           results)
         return results
+
+    def couple(self, gcm_ovalsE: Dict[str, torch.Tensor]):
+        """One coupling step for every sheet: a window of one
+        (``_window``).  gcm_ovalsE maps sheet name -> (n_in, nE) tensor on
+        the coupler's device.  The writer's dump is stamped with the
+        step's start, as the reference's ``couple`` stamps it."""
+        return self._window(1, lambda name: gcm_ovalsE[name][None],
+                            stamp=self.time)
 
     def run_transient(self, forcing_fn: Callable[[float, str], torch.Tensor],
                       n_steps: int, fused: bool = False):
         """N-step transient loop, conservation booked per step.
-        forcing_fn(t, sheet) -> (n_in, nE) tensor.  ``fused=True`` runs each
-        regeneration window through ``couple_window``, every sheet's window
-        enqueued before any is fetched: on the compiled step one host sync
-        per window (more only where a budget fell short); ledger rows,
+        forcing_fn(t, sheet) -> (n_in, nE) tensor.  ``fused=True`` runs
+        windows bounded by the regeneration cadence (``_window``, each
+        sheet's forcing stacked in span ``window.forcing``): ledger rows,
         regeneration and E1vE0 are the same, and the writer dumps each
-        window's last step.  A sheet whose ice model the reference cannot
-        fuse (neither the SIA step nor marked ``jittable``) runs the whole
-        transient stepwise, as there."""
-        fusible = all(sc.ice_step is step_coupled
-                      or getattr(sc.ice_step, "jittable", False)
-                      for sc in self.sheets.values())
-        if not (fused and fusible):
+        window's last step.  Unfused, or where a sheet's ice model the
+        reference cannot fuse (``_model_fusible``), it is a loop of
+        ``couple``, as there."""
+        if not (fused and all(sc._model_fusible()
+                              for sc in self.sheets.values())):
             out = None
             for _ in range(n_steps):
                 out = self.couple({name: forcing_fn(self.time, name)
                                    for name in self.sheets})
             return out
-        return self._run_transient_fused(forcing_fn, n_steps)
-
-    def _run_transient_fused(self, forcing_fn, n_steps: int):
-        cfg = self.cfg
         results = None
         done = 0
         while done < n_steps:
-            with span("window"):
-                k = max(1, min(n_steps - done,
-                               *(sc.cfg.regen_every - sc.steps_since_regen
-                                 for sc in self.sheets.values())))
-                t0 = self.time
-                stats, results, fE_last, pending = {}, {}, {}, {}
-                for name, sc in self.sheets.items():
-                    with span("window.forcing", sheet=name):
-                        fE_seq = torch.stack([forcing_fn(t0 + i * cfg.dt,
-                                                         name)
-                                              for i in range(k)])
-                    fE_last[name] = fE_seq[-1]
-                    pending[name] = sc.launch_window(fE_seq)
-                for name, sc in self.sheets.items():
-                    stats[name], results[name] = sc.finish_window(
-                        pending[name])
-                for i in range(k):
-                    self.ledger.open_step(t0 + i * cfg.dt)
-                    for name in self.sheets:
-                        for j, key in enumerate(IceSheetCoupler.STAT_KEYS):
-                            self.ledger.post(f"{name}.{key}",
-                                             stats[name][i, j])
-                self.time += k * cfg.dt
-                done += k
-                for name, sc in self.sheets.items():
-                    results[name]["E1vE0"] = sc._regen_if_due(self.ledger)
-                    results[name]["fhc"], results[name]["elevE"] = \
-                        sc.topo_fields()
-                if self.writer is not None:
-                    self._dump(fE_last, results)
+            k = max(1, min(n_steps - done,
+                           *(sc.cfg.regen_every - sc.steps_since_regen
+                             for sc in self.sheets.values())))
+            t0 = self.time
+
+            def fE_seq(name):
+                with span("window.forcing", sheet=name):
+                    return torch.stack([forcing_fn(t0 + i * self.cfg.dt,
+                                                   name) for i in range(k)])
+            results = self._window(k, fE_seq)
+            done += k
         return results

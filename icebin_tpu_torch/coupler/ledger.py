@@ -47,14 +47,11 @@ def repair_mass(out: torch.Tensor, wM: torch.Tensor,
 
 @dataclasses.dataclass
 class Ledger:
-    """Host-side f64 account book, one row per coupling step.
-
-    ``post`` reads its value at once (a device sync for a device tensor);
-    ``post_deferred`` keeps the device tensor and ``flush`` -- which every
-    reader calls -- fetches the whole backlog in one copy."""
+    """Host-side f64 account book, one row per coupling step; ``post``
+    books a host value into the current row (a coupler posts the rows of
+    a window from the window's one fetch)."""
 
     steps: List[Dict[str, float]] = dataclasses.field(default_factory=list)
-    _pending: List[tuple] = dataclasses.field(default_factory=list)
 
     def open_step(self, t: float) -> Dict[str, float]:
         row = {"t": float(t)}
@@ -64,27 +61,9 @@ class Ledger:
     def post(self, key: str, value) -> None:
         self.steps[-1][key] = float(value)
 
-    def post_deferred(self, keys, values: torch.Tensor) -> None:
-        """Book ``keys[i] = values[i]`` into the CURRENT row without
-        fetching: ``values`` stays a device tensor until ``flush``."""
-        self._pending.append((self.steps[-1], tuple(keys), values))
-
-    def flush(self) -> None:
-        pending, self._pending = self._pending, []
-        if not pending:
-            return
-        flat = torch.cat([v.reshape(-1).to(_F64) for _, _, v in pending])
-        flat = flat.cpu().tolist()
-        off = 0
-        for row, keys, _ in pending:
-            for i, k in enumerate(keys):
-                row[k] = flat[off + i]
-            off += len(keys)
-
     def closure_error(self, inflow_keys, outflow_keys, store_key,
                       step: int = -1) -> float:
         """Relative closure of: store_new - store_old == in - out."""
-        self.flush()
         row = self.steps[step]
         prev = (self.steps[step - 1] if len(self.steps) > 1 and step != 0
                 else None)
@@ -97,5 +76,4 @@ class Ledger:
         return abs(lhs - rhs) / scale
 
     def to_rows(self):
-        self.flush()
         return list(self.steps)

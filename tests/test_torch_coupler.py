@@ -178,7 +178,7 @@ def test_fused_matches_stepwise():
     """run_transient(fused=True) runs each regeneration window through
     couple_window; the books, the state and the last outputs are the same
     as the stepwise loop's (same operations, same order: bit-identical)."""
-    a, b = make_port(), make_port(defer_ledger=True)
+    a, b = make_port(), make_port()
     nE = a.gr.nE
 
     def fn(t, sheet):

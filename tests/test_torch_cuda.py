@@ -1129,8 +1129,7 @@ def test_graph_step_is_the_eager_step(cuda, cfl):
     makes the budget rerun on the card."""
     year = 365.2425 * 86400.0
     kw = dict(dt=5 * year, dt_max=10 * year) if cfl else {}
-    a, b = graph_toy(cuda, defer_ledger=True, **kw), eager(graph_toy(cuda,
-                                                                      **kw))
+    a, b = graph_toy(cuda, **kw), eager(graph_toy(cuda, **kw))
     sc = a.sheets["toy"]
     assert sc._fusible() and not b.sheets["toy"]._fusible()
     nE = a.gr.nE
@@ -1159,17 +1158,18 @@ def test_graph_step_is_the_eager_step(cuda, cfl):
 
 
 def test_graph_outputs_do_not_alias(cuda):
-    """What a compiled step returned (fields, state, the deferred stats) is
-    unchanged by the next replay and shares no memory with the graph's
-    static buffers."""
-    cp = graph_toy(cuda, defer_ledger=True)
+    """What a compiled step returned (fields, state) is unchanged by the
+    next replay and shares no memory with the graph's static buffers, and
+    the ledger row it booked stays as it was."""
+    cp = graph_toy(cuda)
     sc = cp.sheets["toy"]
     f = [torch.as_tensor(toy_forcing(cp.gr.nE, k), device=cuda)
          for k in range(2)]
     out = cp.couple({"toy": f[0]})["toy"]
-    state, stats = sc.state, cp.ledger._pending[-1][2]
+    state, row = sc.state, cp.ledger.to_rows()[-1]
+    row0 = dict(row)
     kept = [out[k] for k in ("fI", "fE_out", "fA_out")] + [
-        getattr(state, k) for k in ("H", "bed", "t", "enth")] + [stats]
+        getattr(state, k) for k in ("H", "bed", "t", "enth")]
     copies = [x.clone() for x in kept]
     (g,) = sc._graphs.values()
     static = {x.data_ptr() for x in g.inputs + g.outputs}
@@ -1178,13 +1178,13 @@ def test_graph_outputs_do_not_alias(cuda):
     assert sc.replays == 2
     for x, c in zip(kept, copies):
         assert same(x, c)
+    assert row == row0 and cp.ledger.to_rows()[0] == row0
 
 
 def test_graph_capture_failure_raises(cuda):
     """A fusible model that reads the card on the host cannot be captured:
     couple raises and nothing runs eagerly in its place (no step booked,
-    the state as it was)."""
-    from icebin_tpu_torch.coupler.ledger import Ledger
+    the time and the state as they were)."""
     from icebin_tpu_torch.models.ice_sheet import step_coupled
 
     def reads_back(cfg, state, smb, tsurf, dt, enth_flux=None):
@@ -1197,18 +1197,16 @@ def test_graph_capture_failure_raises(cuda):
     sc = cp.sheets["toy"]
     sc.ice_step = reads_back
     H0 = sc.state.H.clone()
-    ledger = Ledger()
-    ledger.open_step(0.0)
     f = torch.as_tensor(toy_forcing(cp.gr.nE, 0), device=cuda)
     with pytest.raises(RuntimeError):
-        sc.couple(0.0, f, ledger)
+        cp.couple({"toy": f})
     assert sc.replays == 0 and sc.steps_since_regen == 0
     assert torch.equal(sc.state.H, H0)
-    assert ledger.to_rows() == [{"t": 0.0}]
+    assert cp.ledger.to_rows() == [] and cp.time == 0.0
     # the card is still usable: the SIA step captures and runs
     sc.ice_step = step_coupled
-    sc.couple(0.0, f, ledger)
-    assert sc.replays == 1
+    cp.couple({"toy": f})
+    assert sc.replays == 1 and len(cp.ledger.to_rows()) == 1
 
 
 # -- regeneration on the card ----------------------------------------------

@@ -249,7 +249,7 @@ def mesh_run(mesh, specA, specO, specI, op, om):
     mesh; (ledger rows, the whole lattice's H, held state, path
     counters)."""
     gr = regridder(specA, specO, specI, op, om, device=mesh.device)
-    cfg = port.CouplerConfig(regen_every=REGEN, defer_ledger=True)
+    cfg = port.CouplerConfig(regen_every=REGEN)
     cp = port.GCMCoupler(gr, cfg, mesh=mesh)
     return run_held(cp, gr)
 
@@ -275,7 +275,7 @@ def test_mesh_coupler_at_one_rank_is_the_single_device_coupler(toy):
     (got,) = launch(mesh_run, 1, backend="gloo", device="cpu", args=args,
                     timeout=300, nice=10)
     gr = regridder(*args)
-    cfg = port.CouplerConfig(regen_every=REGEN, defer_ledger=True)
+    cfg = port.CouplerConfig(regen_every=REGEN)
     want = run_held(port.GCMCoupler(gr, cfg, device=CPU), gr)
     assert got[0] == want[0]
     np.testing.assert_array_equal(got[1], want[1])

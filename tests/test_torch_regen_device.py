@@ -317,7 +317,7 @@ def two_sheets():
 
 
 def coupled(gr, sheet_cls, regen_every=3):
-    cfg = port.CouplerConfig(regen_every=regen_every, defer_ledger=True)
+    cfg = port.CouplerConfig(regen_every=regen_every)
     cp = port.GCMCoupler(gr, cfg, device=CPU, sheets={
         name: sheet_cls(gr, name, cfg, device=CPU) for name in gr.sheets})
     held = np.random.default_rng(9).uniform(0.5, 2.0, (2, gr.nE))

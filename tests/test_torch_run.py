@@ -215,16 +215,20 @@ def test_resume_is_bit_identical(tmp_path, fused):
     assert a.ledger.to_rows() == b.ledger.to_rows()
 
 
-def test_checkpoint_flushes_the_deferred_ledger(tmp_path):
-    """save_checkpoint reads the ledger through to_rows(), so rows a
-    deferred ledger still holds on the device are in the file."""
-    a = make_port(defer_ledger=True)
-    a.run_transient(port_forcing(a), 2)
-    assert a.ledger._pending
+def test_checkpoint_holds_every_booked_row(tmp_path):
+    """A checkpoint written after per-step ``couple`` calls holds every row
+    the coupler booked, each with the stats keys: the ledger's rows as
+    ``to_rows()`` reads them."""
+    a = make_port()
+    fa = port_forcing(a)
+    for _ in range(3):
+        a.couple({"toy": fa(a.time, "toy")})
     ck = str(tmp_path / "ck.npz")
     port_ck.save_checkpoint(ck, a)
     rows = json.loads(bytes(np.load(ck)["ledger"].tobytes()).decode())
-    assert len(rows) == 2 and "toy.mass_in_E" in rows[-1]
+    assert len(rows) == 3 and rows == a.ledger.to_rows()
+    for r in rows:
+        assert {f"toy.{k}" for k in port.IceSheetCoupler.STAT_KEYS} <= set(r)
 
 
 def close(got, want, what):

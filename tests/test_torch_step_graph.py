@@ -188,7 +188,7 @@ def test_budget_loop_is_the_early_exit_coupler(fused):
     the count seen) and is bit for bit the eager early-exit coupler: every
     step's outputs (stepwise) or each window's last (fused), the state and
     every ledger row, across two regenerations."""
-    a = cfl_port(defer_ledger=True)
+    a = cfl_port()
     b = early_exit(cfl_port())
     sc = a.sheets["toy"]
     assert sc._fusible() and not b.sheets["toy"]._fusible()
@@ -248,10 +248,10 @@ def test_budget_loop_matches_the_reference():
 
 
 def test_outputs_survive_the_next_step():
-    """What step k returned (fields, state) and the stats the deferred
-    ledger holds are unchanged by step k+1: nothing a caller keeps aliases
-    the step's static buffers, which the next run overwrites."""
-    cp = cfl_port(defer_ledger=True)
+    """What step k returned (fields, state) and the ledger row it booked
+    are unchanged by step k+1: nothing a caller keeps aliases the step's
+    static buffers, which the next run overwrites."""
+    cp = cfl_port()
     sc = cp.sheets["toy"]
     f = [torch.as_tensor(forcing_np(k * CFL_DT, cp.gr.nE)) for k in range(2)]
     cp.couple({"toy": f[0]})                 # settles the budget
@@ -259,14 +259,14 @@ def test_outputs_survive_the_next_step():
     kept = {k: out[k].clone() for k in ("fI", "fE_out", "fA_out")}
     state = sc.state
     held = {k: getattr(state, k).clone() for k in ("H", "bed", "t", "enth")}
-    stats = cp.ledger._pending[-1][2]
-    stats0 = stats.clone()
+    row = cp.ledger.to_rows()[-1]
+    row0 = dict(row)
     cp.couple({"toy": f[0]})
     for k, v in kept.items():
         assert torch.equal(out[k].nan_to_num(), v.nan_to_num()), k
     for k, v in held.items():
         assert torch.equal(getattr(state, k), v), k
-    assert torch.equal(stats, stats0)
+    assert row == row0 and cp.ledger.to_rows()[-2] == row0
     assert not torch.equal(sc.state.H, state.H)   # the step did move on
 
 
@@ -300,7 +300,7 @@ def kept_and_fresh(dt=CFL_DT):
     regeneration (``FreshGraphs``), each counting its captures."""
     out = []
     for cls in (port.IceSheetCoupler, FreshGraphs):
-        cp = cfl_port(dt=dt, sheet_cls=cls, defer_ledger=True)
+        cp = cfl_port(dt=dt, sheet_cls=cls)
         counted_captures(cp.sheets["toy"])
         out.append(cp)
     return out

@@ -167,7 +167,7 @@ def fused_run(on):
     """The CFL-bound toy (held state, a regeneration every REGEN steps, a
     budget that reruns) through ``run_transient(..., fused=True)``, the
     recorder ``on`` or off; returns (coupler, spans)."""
-    cp = cfl_port(defer_ledger=True)
+    cp = cfl_port()
     with trace.recording() if on else contextlib.nullcontext():
         cp.run_transient(forcing(cp), N_STEPS, fused=True)
     return cp, trace.drain()
@@ -231,17 +231,36 @@ def test_fused_run_is_the_same_with_the_recorder_on():
 
 
 def test_stepwise_couple_opens_regen_and_topo_only():
-    """A stepwise run opens no window span: each regeneration's ``regen``
-    with its stages, and one ``regen.topo`` a generation (the first
-    step's asks for the first generation's fields)."""
-    cp = cfl_port(defer_ledger=True)
+    """Each stepwise ``couple`` is a window of one: one top-level
+    ``window`` a step, holding its ``window.launch`` and ``window.fetch``
+    (one more of each a budget rerun) and no ``window.forcing`` (the
+    caller gives the forcing); each regeneration's ``regen``, with its
+    stages, and one ``regen.topo`` a generation (the first step's asks
+    for the first generation's fields) sit under the window of the step
+    that brought them."""
+    cp = cfl_port()
+    sc = cp.sheets["toy"]
     with trace.recording():
         for _ in range(REGEN + 1):
             cp.couple({"toy": forcing(cp)(cp.time, "toy")})
     spans = trace.drain()
-    assert [s.name for s in spans if s.parent is None] == [
-        "regen.topo", "regen", "regen.topo"]
+    windows = [i for i, s in enumerate(spans) if s.parent is None]
+    assert [spans[i].name for i in windows] == ["window"] * (REGEN + 1)
+    launches = 0
+    for i in windows:
+        kids = children(spans, i)
+        assert {s.name for s in kids} <= {"window.launch", "window.fetch",
+                                          "regen", "regen.topo"}
+        n = len(children(spans, i, "window.launch"))
+        assert len(children(spans, i, "window.fetch")) == n >= 1
+        launches += n
+    assert launches == REGEN + 1 + sc.reruns
+    assert [(spans[s.parent].name, s.name) for s in spans
+            if s.name in ("regen", "regen.topo")] == [
+        ("window", "regen.topo"), ("window", "regen"),
+        ("window", "regen.topo")]
     (i,) = [i for i, s in enumerate(spans) if s.name == "regen"]
+    assert spans[i].parent == windows[REGEN - 1]
     assert {s.name for s in children(spans, i)} == set(REGEN_STAGES)
 
 
@@ -264,7 +283,7 @@ def modele_ocean_coupler():
     op = np.clip(np.random.default_rng(0).uniform(-0.3, 0.6, specO.ncells),
                  0, 1)
     gr = GCMRegridderModelE(grO, specA, op, np.round(op))
-    cfg = port.CouplerConfig(regen_every=2, defer_ledger=True)
+    cfg = port.CouplerConfig(regen_every=2)
     with trace.recording():
         cp = port.GCMCoupler(gr, cfg, device="cpu")
     return gr, cp, trace.drain()
