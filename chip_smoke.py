@@ -191,7 +191,15 @@ Phases, each of which exits non-zero on failure:
            updates, the first of which walks the graph for them; the
            launches updated must be the graph's), one step replayed, then
            the same step through a graph captured afresh: bit for bit the
-           rebound graph's; a capture's ms beside the rebind's.
+           rebound graph's; a capture's ms beside the rebind's;
+21. books  the books' kernel (csrc/books.cu: books_reduce_kernel<double>)
+           alone on each sheet's step stages at their real widths and
+           weights (the forcing repair's sums, the step's sums, the
+           repair's write): within 1e-14 of sum |f w| of the plain version
+           (the torch chain it replaced; the write bit for bit), two
+           launches the same bits, its ms beside the plain chain's and its
+           byte bound.  Phase 18 counts the books' launches a replay
+           (at most 8 a step and sheet) beside the eager step's.
 
 The timing helpers, the bound and the config #3 and #5 lattices come from
 icebin_tpu_torch.tools.common, which the port's probes share.
@@ -233,6 +241,9 @@ PRODS_ROWS = (2048, 15360)   # tools/probe_prods_scale.py: 44 and 330 MB
 PRODS_TOL = 130 * 2.0 ** -24  # f32 FMA chain of 128 terms, of sum |T * F|
 MODEL_PAIRS = 4096        # seeded pairs a build's stage-2 clip is held to
                           # clip_stream_model on, bit for bit
+BOOKS_LAUNCHES = 8        # the books' launches a step and sheet, at most
+BOOKS_TOL = 1e-14         # kernel sums against the plain version, of
+                          # sum |f w|: another order of f64 adds
 CARD = ""
 
 
@@ -2325,6 +2336,8 @@ def phase_compiled(gr3, gr5, device):
     """Phase 18 (docstring at the top)."""
     import torch
     from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+    from icebin_tpu_torch.ops.books import (books_repair, books_stats,
+                                            books_sum)
     t_phase = time.perf_counter()
     med = lambda x: float(np.median(x)) if x else float("nan")
 
@@ -2354,15 +2367,21 @@ def phase_compiled(gr3, gr5, device):
     oa, ob = (cp.couple({"greenland": fE}) for cp in (a, b))
     same_results(oa, ob, a, b, "compiled #3 after the window")
     counts = []
+    kerns = (spmm_dest_ice, spmm_dest_small, books_sum, books_repair,
+             books_stats)
     for cp, ms, tag in ((a, ms_a, "compiled"), (b, ms_b, "eager")):
-        before = [k.launches for k in (spmm_dest_ice, spmm_dest_small)]
+        before = [k.launches for k in kerns]
         phase_profile(cp, med(ms), device, n=1, tag=f"{tag} #3 profile")
-        counts.append([k.launches - n for k, n in
-                       zip((spmm_dest_ice, spmm_dest_small), before)])
-    say(f"compiled #3: K1 and K2 launches in the profiled step {counts[0]} "
-        f"compiled (counted per replay), {counts[1]} eager")
+        counts.append([k.launches - n for k, n in zip(kerns, before)])
+    say(f"compiled #3: K1 and K2 launches in the profiled step "
+        f"{counts[0][:2]} compiled (counted per replay), {counts[1][:2]} "
+        f"eager; the books' (books_reduce_kernel: books_sum, books_repair; "
+        f"books_stats_kernel) {counts[0][2:]} a replay, "
+        f"{counts[1][2:]} eager, {sum(counts[0][2:])} in all")
     check(counts[0] == counts[1] and min(counts[0]) > 0,
           "a replay's launch counts are not the eager step's")
+    check(sum(counts[0][2:]) <= BOOKS_LAUNCHES,
+          f"the books launch {sum(counts[0][2:])} times a replay and sheet")
 
     # a fused window with no host sync in it: the graph of this generation
     # is captured, so enqueueing 2 steps must not synchronise; the one
@@ -2584,6 +2603,113 @@ def phase_regen(gr, device):
     return res
 
 
+# -- phase 21: the books kernel alone ------------------------------------------
+
+def books_stages(sc, device, seed):
+    """The groups of a coupling step's two sum stages on sheet ``sc``'s
+    real widths and weights (``IceSheetCoupler._couple_core``): the
+    forcing repair's sums (7 rows over E scaled, 7 over I, the weights'
+    total) and the step's sums (5 lattice fields before the step and 7
+    after it, 2 of them of three fields, and the 7 E-side sources), with
+    their fields from ``seed``; and the bytes each reads once."""
+    import torch
+    from icebin_tpu_torch.ops.apply import apply_view
+    from icebin_tpu_torch.ops.books import Rows
+    ive = sc.mat("IvE")
+    cin, rep = sc.contract_in, list(sc.cfg.repair_fields)
+    fac, off = sc._conversion(torch.float32)
+    fE = torch.as_tensor(forcing(sc.gr.nE, seed=seed), device=device)
+    fI = apply_view(ive, fE, var_factor=fac, var_offset=off)
+    irep = [cin.index(n) for n in rep]
+    rng = np.random.default_rng(seed)
+    nI, nE = fI.shape[1], fE.shape[1]
+    f32 = lambda: torch.as_tensor(rng.standard_normal(nI), dtype=torch.float32,
+                                  device=device)
+    f64 = lambda: torch.as_tensor(rng.standard_normal(nI), device=device)
+    H, enth = sc.state.H, sc.state.enth
+    repair = [Rows(fE, irep, w=ive.Mw, scale=fac), Rows(fI, irep, w=ive.wM),
+              Rows(ive.wM)]
+    step = [Rows(H), Rows(enth), Rows(f64()), Rows(f64()), Rows(f64()),
+            Rows(H), Rows(enth), Rows(f32(), extra=(f32(), f32())),
+            Rows(H.sum()), Rows(f32(), extra=(f32(), f32())),
+            Rows(enth.sum()), Rows(f32()),
+            Rows(fE, irep, w=ive.Mw, scale=fac, split=True)]
+    nbytes = {"repair": 7 * 4 * (nE + nI) + 8 * (nE + nI),
+              "step": (4 * 4 + 3 * 8 + 2 * 3 * 4 + 4) * nI
+              + 7 * 4 * nE + 8 * nE}
+    return {"repair": repair, "step": step}, nbytes, (fI, ive, irep)
+
+
+def phase_books(sheets, device):
+    """The books' kernel (csrc/books.cu) alone on each sheet's step stages
+    (``books_stages``) and on its repair's write: against the plain
+    version (the torch chain it replaced, on the card) within BOOKS_TOL of
+    sum |f w| (the write bit for bit), two launches the same bits, its ms
+    beside the plain chain's and its byte bound.  Returns the kernel-table
+    entry (Antarctica's step sums) with each case's numbers."""
+    import torch
+    from icebin_tpu_torch.ops.books import (Rows, books_repair,
+                                            books_repair_ref, books_sum,
+                                            books_sum_ref)
+
+    def absolute(groups):
+        """The groups with |f| and |w|: their sums bound sum |f w|."""
+        return [Rows(g.x.abs(), g.rows, None if g.w is None else g.w.abs(),
+                     g.mask, tuple(e.abs() for e in g.extra),
+                     None if g.scale is None else g.scale.abs(), g.split)
+                for g in groups]
+
+    res = {}
+    for name, sc in sheets.items():
+        stages, nbytes, (fI, ive, irep) = books_stages(sc, device, 21)
+        for tag, groups in stages.items():
+            got = books_sum(*groups)
+            check(same(got, books_sum(*groups)),
+                  f"books {name} {tag}: two launches differ")
+            want = books_sum_ref(*groups)
+            scale = books_sum_ref(*absolute(groups))
+            err = float(((got - want).abs() / scale.clamp(min=1e-300)).max())
+            check(err <= BOOKS_TOL, f"books {name} {tag}: {err:.2e} of sum "
+                                    f"|f w| from the plain version")
+            ms = time_ms(lambda: books_sum(*groups), 50)
+            plain = time_ms(lambda: books_sum_ref(*groups), 20)
+            b, by = bound(nbytes[tag], 0)
+            res[f"{name} {tag}"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                        bound_by=by, max_rel_err=err,
+                                        sums=len(got))
+            say(f"books {name} {tag} sums: {len(got)} sums over rows of "
+                f"{fI.shape[1]} (I) and {sc.gr.nE} (E), {ms:.4f} ms, "
+                f"bound {b * 1e3:.1f} us ({by}), the plain ATen chain "
+                f"{plain:.4f} ms; {err:.2e} of sum |f w| from it")
+        # the repair's write: 7 rows, their f32 downcast into the forcing,
+        # the 7 delivered sums
+        m = books_sum(Rows(fI, irep, w=ive.wM), Rows(ive.wM))
+        m_src = m[:7] * 1.0001
+        args = (ive.wM, m_src, m[:7], m[7])
+        kw = dict(rows=irep, into=True, sums=list(range(7)))
+        xa, xb = fI.clone(), fI.clone()
+        out, ds = books_repair(xa, *args, **kw)
+        ref, dref = books_repair_ref(xb, *args, **kw)
+        check(same(out, ref) and same(xa, xb),
+              f"books {name} repair: the write is not the plain version's")
+        ms = time_ms(lambda: books_repair(fI.clone(), *args, **kw), 50)
+        plain = time_ms(lambda: books_repair_ref(fI.clone(), *args, **kw),
+                        20)
+        copy = time_ms(lambda: fI.clone(), 50)
+        nI = fI.shape[1]
+        b, by = bound(7 * nI * (4 + 8 + 4) + 8 * nI, 0)
+        res[f"{name} write"] = dict(ms=ms - copy, plain_ms=plain - copy,
+                                    bound_ms=b, bound_by=by)
+        say(f"books {name} repair write: 7 rows of {nI}, {ms - copy:.4f} ms "
+            f"(less the clone's {copy:.4f}), bound {b * 1e3:.1f} us ({by}), "
+            f"the plain ATen chain {plain - copy:.4f} ms; bit for bit")
+    top = res["antarctica step"]
+    return dict(top, max_abs_err=max(r.get("max_rel_err", 0.0)
+                                     for r in res.values()),
+                library_ms=None, cases=res,
+                param="antarctica step sums (of sum |f w|: max_abs_err)")
+
+
 # -- phase 20: the graph kept across regenerations ----------------------------
 
 REBIND_TIMES = 3          # rebinds (and fresh captures) a sheet
@@ -2671,6 +2797,8 @@ def main():
         fail("no CUDA device: this script measures the port on a GPU")
     from icebin_tpu_torch.ops import _build
     from icebin_tpu_torch.ops.apply import spmm_dest_ice, spmm_dest_small
+    from icebin_tpu_torch.ops.books import (books_repair, books_stats,
+                                            books_sum)
     from icebin_tpu_torch.ops.clip import (clip_areas_centroids,
                                            clip_areas_centroids_poly)
     device = torch.device("cuda", 0)
@@ -2690,7 +2818,12 @@ def main():
     specA, specI = greenland_specs()
     clip = phase_clip(specA, specI, device)
     counters = (clip_areas_centroids, spmm_dest_ice, spmm_dest_small)
+    books = (books_sum, books_repair, books_stats)
+    for k in books:
+        k.launches = 0
     cp, launches, step_ms = phase_main(specA, specI, device, counters)
+    launches["books"] = sum(k.launches for k in books)
+    check(launches["books"] > 0, "the main path did not launch the books")
     spmm = phase_spmm(cp)
     phase_profile(cp, step_ms, device)
     phase_toy(device)
@@ -2705,6 +2838,7 @@ def main():
     sheets = {"greenland": cp.sheets["greenland"],
               "antarctica": ms.sheets["antarctica"]}
     floors = phase_floors(sheets, device)
+    books_res = phase_books(sheets, device)
     probes = phase_k2probe(sheets, device)
     t14 = time.perf_counter()
     probes1 = phase_k1probe(sheets, device)
@@ -2770,6 +2904,9 @@ def main():
         dict(row("segment_sum", "icebin_tpu_torch/csrc/segsum.cu",
                  "none: regeneration is host numpy in the JAX package",
                  regen), param=regen["param"]),
+        dict(row("books", "icebin_tpu_torch/csrc/books.cu",
+                 "none: added for the books on the card", books_res),
+             param=books_res["param"], cases=books_res["cases"]),
     ] + [dict(row(name, "icebin_tpu_torch/csrc/k2probe.cu", site,
                   probes[name]), param=probes[name]["param"])
          for name, site in K2PROBE_SITES.items()] + [

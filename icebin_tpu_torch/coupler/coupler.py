@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from icebin_tpu_torch.coupler.e1ve0 import e1ve0_matrix
-from icebin_tpu_torch.coupler.ledger import Ledger, repair_mass, weighted_mass
+from icebin_tpu_torch.coupler.ledger import Ledger, weighted_mass
 from icebin_tpu_torch.coupler.varset import (VarSet,
                                              ice_modele_output_contract,
                                              ice_native_input_contract,
@@ -84,6 +84,8 @@ from icebin_tpu_torch.models.ice_sheet import (RHO_ICE, IceFluxes,
                                                advance, init_state,
                                                step_coupled)
 from icebin_tpu_torch.ops.apply import apply_view
+from icebin_tpu_torch.ops.books import (Rows, books_repair, books_stats,
+                                        books_sum)
 from icebin_tpu_torch.ops.csr import (CsrBuffers, CsrView, csr_pack_sorted,
                                       csr_view_pair)
 from icebin_tpu_torch.regrid.device import (DeviceRegridMatrices,
@@ -239,9 +241,8 @@ class IceSheetCoupler:
         self.contract_in_ice = contract_in_ice or ice_native_input_contract()
         self._fac_in, self._off_in = self.contract_in.conversion_to(
             self.contract_in_ice)
-        #: the unit conversion and the repaired rows' indices as device
-        #: constants by forcing dtype (a copy from a host list inside the
-        #: step would break its capture)
+        #: the unit conversion as device constants by forcing dtype (a copy
+        #: from a host list inside the step would break its capture)
         self._conv: Dict[torch.dtype, tuple] = {}
         self._conversion(torch.float32)
         self.contract_out = contract_out or ice_modele_output_contract()
@@ -382,20 +383,29 @@ class IceSheetCoupler:
                    lattice=True):
         """``bm`` applied to ``f`` with the repair; ``lattice``: the view's
         ice side is the ice lattice (all but AvE/EvA), so the repair's sums
-        over that side are totals across ranks (``_across``)."""
+        over that side are totals across ranks (``_across``).  The repair's
+        sums are one ``books_sum``, its write one ``books_repair``."""
         out = apply_view(bm, f, scale=True, var_factor=var_factor,
                          var_offset=var_offset, fill=math.nan)
         if self.cfg.repair and var_factor is None and var_offset is None:
-            m_src = weighted_mass(f, bm.Mw).reshape(-1)
+            out2 = out[None] if out.dim() == 1 else out
+            nv = len(out2)
+            sums = self._books(Rows(f, w=bm.Mw), Rows(out2, w=bm.wM),
+                               Rows(bm.wM))
+            m_src, m_dst, wtot = sums[:nv], sums[nv:2 * nv], sums[2 * nv]
             if lattice and not bm.transposed:       # the source is ice
                 (m_src,) = self._across(m_src)
-            out2 = torch.where(torch.isfinite(out), out, 0.0)
-            out = repair_mass(out2[None] if out.dim() == 1 else out2,
-                              bm.wM, m_src,
-                              totals=(self._across if lattice
-                                      and bm.transposed else None))
+            elif lattice:                           # the destination is
+                m_dst, wtot = self._across(m_dst, wtot)
+            out = books_repair(out2, bm.wM, m_src, m_dst, wtot,
+                               weighted_mass=weighted_mass)[0]
             out = out[0] if f.dim() == 1 else out
         return out
+
+    def _books(self, *groups: Rows) -> torch.Tensor:
+        """``books_sum`` of ``groups``, its plain version taking this
+        module's ``weighted_mass``."""
+        return books_sum(*groups, weighted_mass=weighted_mass)
 
     # -- GCM-held EC state (E1vE0 across regenerations) ---------------------
 
@@ -429,41 +439,45 @@ class IceSheetCoupler:
     # -- one coupling step -------------------------------------------------
 
     def _conversion(self, dtype: torch.dtype):
-        """(factor, offset, repaired-row index) device tensors of the input
-        contract's conversion, for forcing of ``dtype``."""
+        """(factor, offset) device tensors of the input contract's
+        conversion, for forcing of ``dtype``."""
         if dtype not in self._conv:
-            idx = (torch.as_tensor([self.contract_in.index(n)
-                                    for n in self.cfg.repair_fields],
-                                   device=self.device)
-                   if self.cfg.repair else None)
             self._conv[dtype] = (
                 torch.as_tensor(self._fac_in, dtype=dtype,
                                 device=self.device),
                 torch.as_tensor(self._off_in, dtype=dtype,
-                                device=self.device), idx)
+                                device=self.device))
         return self._conv[dtype]
 
     def _couple_core(self, ive, evi, avi, state, fE_in, ice_step=None):
         """The device math of one coupling step, with the ice model
         ``ice_step`` (default ``self.ice_step``).  Returns (fI, fE_out,
-        fA_out, new_state, stats (15,) f64)."""
+        fA_out, new_state, stats (15,) f64).  The books take a launch a
+        stage on the card (``ops.books``): the forcing repair's sums and
+        its write, the step's sums, each harvest apply's sums and write,
+        and the ledger row."""
         cfg = self.cfg
         cin = self.contract_in
-        fac, off, idx = self._conversion(fE_in.dtype)
+        fac, off = self._conversion(fE_in.dtype)
         # 1. E -> I forcing transport fused with the unit conversion
         fI = apply_view(ive, fE_in, scale=True, var_factor=fac,
                         var_offset=off, fill=math.nan)
         fI64 = None
         rep = list(cfg.repair_fields)
+        dl_names = ("smb_mass", "rain_mass", "rain_enth",
+                    *self.ENERGY_IN_FIELDS)
         if cfg.repair:
             # the f64 repaired rows feed the ledger, their f32 downcast
             # the model (its quantization lands in the residual rows)
-            src_conv = fE_in[idx] * fac[idx, None]
-            m_src = weighted_mass(src_conv, ive.Mw)
-            sub = torch.where(torch.isfinite(fI[idx]), fI[idx], 0.0)
-            fI64 = repair_mass(sub, ive.wM, m_src, totals=self._across)
-            fI[idx] = torch.where(torch.isfinite(fI[idx]),
-                                  fI64.to(fI.dtype), fI[idx])
+            irep = [cin.index(n) for n in rep]
+            nr = len(irep)
+            sums = self._books(Rows(fE_in, irep, w=ive.Mw, scale=fac),
+                               Rows(fI, irep, w=ive.wM), Rows(ive.wM))
+            m_dst, wtot = self._across(sums[nr:2 * nr], sums[2 * nr])
+            fI64, dls = books_repair(
+                fI, ive.wM, sums[:nr], m_dst, wtot, rows=irep, into=True,
+                sums=[rep.index(n) for n in dl_names],
+                weighted_mass=weighted_mass)
 
         def row(name):
             """Finite-cleaned forcing row: f64 repaired where available."""
@@ -484,62 +498,33 @@ class IceSheetCoupler:
         rain_enthI = row("rain_enth") * mfac
         enthI = sum(row(n) for n in self.ENERGY_IN_FIELDS) * mfac
 
-        mask = self._active_mask
-
-        def _sum(x):
-            """This rank's f64 sum of a lattice field, pad rows out."""
-            x = x.reshape(-1)
-            if mask is not None:
-                x = torch.where(mask.reshape(-1), x, 0.0)
-            return x.to(_F64).sum()
-
-        def e_src(name):
-            k = cin.index(name)
-            return weighted_mass(fE_in[k] * fac[k], ive.Mw) * cfg.dt
-
-        m_in = e_src("smb_mass") + e_src("rain_mass")
-        e_in = (sum(e_src(n) for n in self.ENERGY_IN_FIELDS)
-                + e_src("rain_enth"))
-        if fI64 is not None:
-            def dlv(name):
-                return weighted_mass(fI64[rep.index(name)], ive.wM)
-        else:
-            def dlv(name):
-                return weighted_mass(row(name), ive.wM)
-        # the ice-lattice totals before the step, in one cross-rank sum on
-        # a mesh (sums over E above are of replicated fields: not reduced)
-        dl_names = ("smb_mass", "rain_mass", "rain_enth",
-                    *self.ENERGY_IN_FIELDS)
-        (mass0, e_store0, s_smb, s_rain, s_enth,
-         *dls) = self._across(_sum(state.H), _sum(state.enth), _sum(smbI),
-                              _sum(rainI), _sum(enthI),
-                              *(dlv(n) for n in dl_names))
-        mass0 = mass0 * self.cell_area * RHO_ICE
-        e_store0 = e_store0 * self.cell_area
-        dl = {n: v * cfg.dt for n, v in zip(dl_names, dls)}
-        m_delivered = dl["smb_mass"] + dl["rain_mass"]
-        m_rain = dl["rain_mass"]
-        e_rain = dl["rain_enth"]
-        e_delivered = sum(dl[n] for n in self.ENERGY_IN_FIELDS) + e_rain
-
         # 2. ice model step
         new_state, fx = (ice_step or self.ice_step)(
             self.ice_cfg, state, smbI, tsI, cfg.dt, enthI)
-        ad = self.cell_area * cfg.dt
-        shed = (fx.runoff + fx.basal_melt + fx.calving).to(_F64)
-        e_shed = (fx.enth_runoff + fx.enth_basal + fx.enth_calving).to(_F64)
-        (mass1, e_store1, m_shed, m_clamp, e_shed, e_clamp,
-         e_pdd) = self._across(
-            _sum(new_state.H), _sum(new_state.enth), shed.sum(),
-            fx.mass_clamp.to(_F64).sum(), e_shed.sum(),
-            fx.enth_clamp.to(_F64).sum(), fx.latent_pdd.to(_F64).sum())
-        mass1 = mass1 * self.cell_area * RHO_ICE
-        e_store1 = e_store1 * self.cell_area
-        m_returned = m_shed * ad + m_rain
-        m_clamp = m_clamp * ad
-        e_returned = e_shed * ad + e_rain
-        e_clamp = e_clamp * ad
-        e_pdd = e_pdd * ad
+
+        # the step's sums in one stage: the lattice totals before and after
+        # it (pad rows out), the delivered sums where the repair did not
+        # take them, and the E-side sources (replicated: not reduced)
+        mask = self._active_mask
+        irows = [cin.index(n) for n in dl_names]
+        sums = self._books(
+            *(Rows(x, mask=mask) for x in (state.H, state.enth, smbI, rainI,
+                                           enthI)),
+            *(() if fI64 is not None else
+              (Rows(fI, irows, w=ive.wM, split=True),)),
+            Rows(new_state.H, mask=mask), Rows(new_state.enth, mask=mask),
+            Rows(fx.runoff, extra=(fx.basal_melt, fx.calving)),
+            Rows(fx.mass_clamp),
+            Rows(fx.enth_runoff, extra=(fx.enth_basal, fx.enth_calving)),
+            Rows(fx.enth_clamp), Rows(fx.latent_pdd),
+            Rows(fE_in, irows, w=ive.Mw, scale=fac, split=True))
+        k = 5 if fI64 is not None else 12
+        if fI64 is None:
+            dls = sums[5:12]
+        # the ice-lattice totals, in one cross-rank sum on a mesh
+        pre, dls, post = self._across(sums[:5], dls, sums[k:k + 7])
+        stats = books_stats(pre, dls, post, sums[k + 7:],
+                            cell_area=self.cell_area, rho=RHO_ICE, dt=cfg.dt)
 
         # 3. harvest I -> E/A (flux rows back to the matrix measure)
         inv = torch.where(wMi > 0,
@@ -548,20 +533,6 @@ class IceSheetCoupler:
         outI = self._ice_outputs(new_state, fx, rainI, rain_enthI, inv)
         fE_out = self._apply_mat(evi, outI)
         fA_out = self._apply_mat(avi, outI)
-
-        # residual rows: defined so the ledger identities hold exactly
-        m_del_f32 = (s_smb + s_rain) * ad
-        e_del_f32 = s_enth * ad
-        m_residual = ((mass1 - mass0 - m_del_f32 + m_returned - m_clamp)
-                      + (m_del_f32 - m_delivered))
-        e_residual = ((e_store1 - e_store0 - e_del_f32
-                       + (e_returned - e_rain) + e_clamp)
-                      + (e_del_f32 + e_rain - e_delivered))
-        stats = torch.stack([
-            m_in, m_delivered, mass1, m_returned, m_clamp, m_residual,
-            e_in, e_delivered, e_pdd,
-            e_store1, e_returned, e_clamp, e_residual,
-            m_rain, e_rain])
         return fI, fE_out, fA_out, new_state, stats
 
     def _mats_hot(self):

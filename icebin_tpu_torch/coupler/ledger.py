@@ -3,7 +3,10 @@
 
 The books are f64 unconditionally: the reference falls to f32 when JAX's
 x64 mode is off (``ledger.py:33,53``); here every weighted sum, repair and
-ledger value is f64 whatever the field dtype.
+ledger value is f64 whatever the field dtype.  The coupling step takes its
+books through ``ops.books`` (a kernel a stage on the card), whose plain
+version is the torch code of ``weighted_mass`` (defined there) and of
+``repair_mass``'s two halves.
 """
 from __future__ import annotations
 
@@ -12,15 +15,11 @@ from typing import Dict, List
 
 import torch
 
+from icebin_tpu_torch.ops.books import weighted_mass
+
 __all__ = ["weighted_mass", "repair_mass", "Ledger"]
 
 _F64 = torch.float64
-
-
-def weighted_mass(f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f64 sum of f*w over the last axis, non-finite f counted as 0."""
-    fv = torch.where(torch.isfinite(f), f, 0.0).to(_F64)
-    return (fv * w.to(_F64)).sum(dim=-1)
 
 
 def repair_mass(out: torch.Tensor, wM: torch.Tensor,

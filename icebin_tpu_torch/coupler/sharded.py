@@ -82,7 +82,7 @@ class MeshIceSheetCoupler(IceSheetCoupler):
         if self.rows_real < self.ny_l:
             rows = torch.arange(self.ny_l, device=mesh.device)[:, None]
             self._active_mask = (rows < self.rows_real).expand(
-                self.ny_l, specI.nx)
+                self.ny_l, specI.nx).contiguous()
         self.ice_step = make_sharded_ice_step(mesh, ny_real=self.ny_real)
 
     # -- the rank's block of the lattice ------------------------------------

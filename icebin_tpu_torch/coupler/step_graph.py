@@ -26,8 +26,9 @@ reset, and the warm-up runs on the side stream the caller gives
 (``stream``, the same one every time), so each capture reuses the blocks
 the last one freed.
 
-The regrid wrappers count their launches in Python (``.launches`` of
-``ops.apply.spmm_dest_small`` and ``spmm_dest_ice``).  Under capture that
+The regrid and books wrappers count their launches in Python
+(``.launches`` of ``ops.apply.spmm_dest_small`` and ``spmm_dest_ice``,
+``ops.books.books_sum``, ``books_repair`` and ``books_stats``).  Under capture that
 code runs once, so the counts a capture adds are taken back and recorded as
 the graph's launches, and every replay adds them again: each count stays
 the number of times its kernel ran.
@@ -40,12 +41,14 @@ import torch
 
 from icebin_tpu_torch.ops.apply import (rebind_dest_small, spmm_dest_ice,
                                         spmm_dest_small)
+from icebin_tpu_torch.ops.books import books_repair, books_stats, books_sum
 from icebin_tpu_torch.utils.trace import span
 
 __all__ = ["StepGraph"]
 
 #: the kernel wrappers whose ``.launches`` a replay adds to
-COUNTED = (spmm_dest_small, spmm_dest_ice)
+COUNTED = (spmm_dest_small, spmm_dest_ice, books_sum, books_repair,
+           books_stats)
 
 
 class StepGraph:

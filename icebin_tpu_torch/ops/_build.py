@@ -64,6 +64,9 @@ _SIGNATURES = {
     "smem_copy_block": ((_P, _P, _I, _P), _I),
     "smem_copy_cluster": ((_P, _P, _I, _I, _PI, _P), _I),
     "segment_sum": ((_P, _P, _P, _I, _P), _I),
+    "books_struct_size": ((), _I),
+    "books_reduce": ((_P, _I, _P), _I),
+    "books_stats": ((_P,) * 5 + (ctypes.c_double,) * 4 + (_P,), _I),
     "icebin_cuda_error_string": ((_I,), ctypes.c_char_p),
     "icebin_cuda_error_name": ((_I,), ctypes.c_char_p),
 }
