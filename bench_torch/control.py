@@ -40,7 +40,6 @@ def readings(name, seed, device, res_km=None):
     ref = check.inputs(cfg, traffic, seed, device, REFERENCE, grid, res_km)
     ctl = check.inputs(cfg, traffic, seed, device, CONTROL, grid, res_km)
     names = [s.name for s in ref.sheets]
-    nA, nhc = ref.sheets[0].xg.nA, ref.hcdefs.numel()
     mt = float(cfg["min_thickness"])
     start, held = check.initial(ref, traffic, seed, device)
     vals, rows = {}, []
@@ -52,10 +51,10 @@ def readings(name, seed, device, res_km=None):
             step0 = p * ref.K
             c = check.run_period(ctl, start, held, step0 % len(ref.F), step0,
                                  CONTROL, abi, mt)
-            rec = check.as_record(c, start, held, step0 % len(ref.F), step0,
-                                  nA, nhc, abi)
+            rec = check.as_record(ref, c, start, held, step0 % len(ref.F),
+                                  step0, abi)
             rows += rec.rows
-            g, _ = check.numbers(rec, out, ref.sheets, nA, nhc, abi)
+            g, _ = check.numbers(rec, out, ref, abi)
             for k, v in g.items():
                 vals[k] = max(vals.get(k, 0.0), v)
         start, held = nxt, held1

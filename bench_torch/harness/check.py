@@ -41,16 +41,22 @@ The two residual rows are defined to absorb the f32 rounding of the state
 update (they hold the books exactly); two sound runs whose states differ
 by a rounding differ there as much as the control does, so they are not
 compared: the sums they are made of are.
+
+The reference's coupled period is the configuration's own: the module
+under ``bench_torch/reference/`` that its ``reference`` key names
+(``reference``; ``bench_torch/README.md`` gives the module's contract).
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from pathlib import Path
+from types import ModuleType
 from typing import List
 
 import numpy as np
 import torch
 
-from reference import coupler as rc
 from reference import grid as rg
 from reference import ice as ri
 from reference.prec import REFERENCE
@@ -59,10 +65,44 @@ from . import common, drivers, gcm, system
 
 RESIDUALS = ("mass_residual", "energy_residual")
 HELD_KEYS = ("held_mass", "held_mass_dropped", "held_mass_gained")
+REFERENCE_DIR = Path(__file__).resolve().parent.parent / "reference"
+#: what the harness reads of a reference module
+CONTRACT = ("STAT_KEYS", "Sheet", "SheetState", "PeriodOut", "period",
+            "check_params")
 
 
-def reference_sheets(cfg, grid: gcm.Grid, device, prec,
-                     res_km=None) -> List[rc.Sheet]:
+class ModuleError(LookupError):
+    """A configuration's ``reference`` names no module of
+    ``bench_torch/reference/``, or one that cannot judge its params."""
+
+
+def reference(cfg) -> ModuleType:
+    """The module that judges configuration ``cfg``: the file that its
+    ``reference`` names (a path from the checkout's root, directly under
+    ``bench_torch/reference/``), imported as ``reference.<stem>``, once it
+    has accepted the configuration's params."""
+    given = cfg.get("reference")
+    path = (REFERENCE_DIR.parent.parent / str(given)).resolve()
+    if given is None or path.parent != REFERENCE_DIR or \
+            path.suffix != ".py" or not path.is_file():
+        raise ModuleError(f"configuration {cfg['name']!r}: its reference "
+                          f"{given!r} is no module file directly under "
+                          f"bench_torch/reference/")
+    mod = importlib.import_module(f"reference.{path.stem}")
+    missing = [n for n in CONTRACT if not hasattr(mod, n)]
+    if missing:
+        raise ModuleError(f"configuration {cfg['name']!r}: its reference "
+                          f"{given} has no {', '.join(missing)}")
+    try:
+        mod.check_params(system.regrid_params(cfg))
+    except ValueError as e:
+        raise ModuleError(f"configuration {cfg['name']!r}: its reference "
+                          f"{given} cannot judge it: {e}") from None
+    return mod
+
+
+def reference_sheets(cfg, grid: gcm.Grid, device, prec, res_km=None):
+    rc = reference(cfg)
     out = []
     for s in cfg["sheets"]:
         nx, ny, _ = system.lattice_shape(s, res_km)
@@ -78,7 +118,8 @@ def reference_sheets(cfg, grid: gcm.Grid, device, prec,
     return out
 
 
-def initial_state(sh: rc.Sheet, device) -> rc.SheetState:
+def initial_state(rc: ModuleType, sh, device):
+    """The cell's initial state of sheet ``sh``, a ``rc.SheetState``."""
     H = ri.vialov(sh.nx, sh.ny, device)
     return rc.SheetState(H, ri.cold_enthalpy(H), torch.zeros_like(H))
 
@@ -129,15 +170,17 @@ def harvest_floor(ind, W):
     return f
 
 
-def numbers(rec, out: rc.PeriodOut, sheets: List[rc.Sheet], nA, nhc, abi):
+def numbers(rec, out, inp: "Inputs", abi):
     """The gaps of one sampled period ``rec`` (the program's, or the
-    control's as a record) against the reference's ``out``, and the
-    ledger entry that sets its gap."""
+    control's as a record) against the reference's ``out`` (a
+    ``PeriodOut`` of ``inp.rc``), and the ledger entry that sets its
+    gap."""
     g = dict(ledger=0.0, forcing=0.0, harvest=0.0, state=0.0)
     worst = ""
     K = len(out.stats)
+    sheets, nA, nhc = inp.sheets, inp.nA, inp.hcdefs.numel()
     names = [s.name for s in sheets]
-    ind = [{s: dict(zip(rc.STAT_KEYS, out.stats[i][s].double().cpu()
+    ind = [{s: dict(zip(inp.rc.STAT_KEYS, out.stats[i][s].double().cpu()
                         .tolist())) for s in names} for i in range(K)]
     for i in range(K):
         for s in names:
@@ -222,12 +265,18 @@ def topo_gap(bufs, ref, nA, nhc) -> float:
 class Inputs:
     """What a period of a cell needs besides its start state."""
 
-    sheets: List[rc.Sheet]
+    rc: ModuleType                    # the configuration's reference
+    params: dict                      # its regrid parameters, plain
+    sheets: list                      # of ``rc.Sheet``
     F: List[torch.Tensor]
     hcdefs: torch.Tensor
     dt: float
     K: int
     regen_every: int
+
+    @property
+    def nA(self) -> int:
+        return self.sheets[0].xg.nA
 
 
 def inputs(cfg, traffic, seed, device, prec, grid: gcm.Grid,
@@ -236,14 +285,16 @@ def inputs(cfg, traffic, seed, device, prec, grid: gcm.Grid,
     nE = sheets[0].xg.nA * len(cfg["hcdefs"])
     F = [torch.as_tensor(f, device=device) for f in
          common.year_of_forcing(nE, seed, int(traffic["months"]))]
-    return Inputs(sheets, F, torch.tensor(cfg["hcdefs"], dtype=torch.float64,
-                                          device=device),
+    return Inputs(reference(cfg), system.regrid_params(cfg), sheets, F,
+                  torch.tensor(cfg["hcdefs"], dtype=torch.float64,
+                               device=device),
                   float(cfg["dt_seconds"]), int(traffic["period_steps"]),
                   system.regen_every(traffic))
 
 
 def run_period(inp: Inputs, start, held0, month0, step0, prec, abi,
                min_thickness):
+    rc = inp.rc
     states = {s.name: rc.SheetState(*(x.to(inp.F[0].device)
                                       for x in start[s.name][:3]))
               for s in inp.sheets}
@@ -255,7 +306,7 @@ def run_period(inp: Inputs, start, held0, month0, step0, prec, abi,
     if step0 % inp.regen_every == 0 and step0 > 0:
         masks = states
     elif step0 < inp.regen_every:
-        masks = {s.name: initial_state(s, inp.F[0].device)
+        masks = {s.name: initial_state(rc, s, inp.F[0].device)
                  for s in inp.sheets}
     else:
         raise ValueError(f"a period starting at step {step0} does not "
@@ -263,22 +314,23 @@ def run_period(inp: Inputs, start, held0, month0, step0, prec, abi,
                          f"{inp.regen_every})")
     return rc.period(inp.sheets, states, inp.hcdefs,
                      [inp.F[(month0 + i) % M] for i in range(inp.K)],
-                     inp.dt, prec,
+                     inp.dt, prec, params=inp.params,
                      regen=(step0 + inp.K) % inp.regen_every == 0,
                      held=held,
                      keep_fields="all" if abi else "last", keep_topo=abi,
                      min_thickness=min_thickness, mask_states=masks)
 
 
-def as_record(out: rc.PeriodOut, start, held0, month0, step0, nA, nhc, abi):
-    """A period of the reference (the control) in the program's shape."""
+def as_record(inp: Inputs, out, start, held0, month0, step0, abi):
+    """A period of the reference (the control), a ``PeriodOut`` of
+    ``inp.rc``, in the program's shape."""
     rec = drivers.Record(index=0, month0=month0, step0=step0, start=start,
                          held0=held0)
     for i, st in enumerate(out.stats):
         row = {}
         for s, v in st.items():
             row.update({f"{s}.{k}": x for k, x in
-                        zip(rc.STAT_KEYS, v.double().cpu().tolist())})
+                        zip(inp.rc.STAT_KEYS, v.double().cpu().tolist())})
         rec.rows.append(row)
     for s, (f1, hm, dr, ga) in out.held.items():
         rec.rows[-1].update({f"{s}.{k}": float(x) for k, x in
@@ -302,7 +354,7 @@ def initial(inp: Inputs, traffic, seed, device):
     makes them."""
     start = {}
     for s in inp.sheets:
-        st = initial_state(s, device)
+        st = initial_state(inp.rc, s, device)
         start[s.name] = (st.H, st.U, st.bed)
     n = int(traffic["held_fields"])
     nE = inp.sheets[0].xg.nA * inp.hcdefs.numel()
@@ -344,8 +396,6 @@ def check(cfg, traffic, run, seed, device, limits, grid: gcm.Grid,
     number) of a finished run."""
     abi = traffic["driver"] == "abi"
     inp = inputs(cfg, traffic, seed, device, REFERENCE, grid, res_km)
-    nA = inp.sheets[0].xg.nA
-    nhc = inp.hcdefs.numel()
     names = [s.name for s in inp.sheets]
     mt = float(cfg["min_thickness"])
     vals = {"transport": transport(run.rows, names)}
@@ -363,7 +413,7 @@ def check(cfg, traffic, run, seed, device, limits, grid: gcm.Grid,
     for rec in run.records:
         out = run_period(inp, rec.start, rec.held0, rec.month0, rec.step0,
                          REFERENCE, abi, mt)
-        g, w = numbers(rec, out, inp.sheets, nA, nhc, abi)
+        g, w = numbers(rec, out, inp, abi)
         if g["ledger"] > vals.get("ledger", 0.0):
             where = w
         for k, v in g.items():

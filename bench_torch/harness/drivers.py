@@ -70,7 +70,6 @@ class Run:
     failed: int = 0
     topo_s: List[float] = dataclasses.field(default_factory=list)
     regen_s: List[float] = dataclasses.field(default_factory=list)
-    capture_ms: List[float] = dataclasses.field(default_factory=list)
     trace: Optional[common.Trace] = None
     spmm_bound_s: Optional[float] = None   # least s of a step's applies
     n_sheets: int = 1
@@ -108,6 +107,7 @@ class Driver:
     timers and the kept periods."""
 
     def __init__(self, cfg, traffic, seed, device, grid, res_km=None):
+        self.refuse(cfg)
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.grid = grid
         self.device = torch.device(device)
@@ -120,6 +120,12 @@ class Driver:
         self.timing = [False]         # host timers on (a --trace 1 window)
         self.topo_s: List[float] = []
         self.regen_s: List[float] = []
+
+    @staticmethod
+    def refuse(cfg):
+        """A ``system.ParamsError`` where the configuration states regrid
+        parameters this driver cannot hand to the program."""
+        system.regrid_params(cfg)
 
     def forcing_host(self, nE):
         return common.year_of_forcing(nE, self.seed, self.months)
@@ -176,6 +182,17 @@ class Driver:
 
 class AbiDriver(Driver):
     """ModelE through the C ABI (module docstring)."""
+
+    @staticmethod
+    def refuse(cfg):
+        """The ``RunConfig`` that ``gcmce_new`` reads carries no regrid
+        parameters: the C ABI runs the program's default."""
+        p = system.regrid_params(cfg)
+        if p != system.DEFAULT_PARAMS:
+            raise system.ParamsError(
+                f"configuration {cfg['name']!r} states params {p}; the abi "
+                f"driver's RunConfig carries none, so the C ABI would run "
+                f"{system.DEFAULT_PARAMS}")
 
     def setup(self):
         from icebin_tpu_torch.io import write_exchange, write_grid
@@ -387,7 +404,6 @@ def run_cell(cfg, traffic, seed, seconds, device, grid, *, trace=False,
     for _ in range(int(traffic["warmup_periods"])):
         drv.period(None, [])
     sync(drv.device)
-    caps0 = {n: len(sc.capture_ms) for n, sc in drv.sheets.items()}
     row0 = len(drv.rows())
     sampler = Sampler(int(traffic["sample_periods"]), seed)
     drv.timing[0] = trace
@@ -413,8 +429,6 @@ def run_cell(cfg, traffic, seed, seconds, device, grid, *, trace=False,
     run.attempted = run.steps
     drv.timing[0] = False
     run.rows = drv.rows()[row0:row0 + run.steps]
-    run.capture_ms = [ms for n, sc in drv.sheets.items()
-                      for ms in sc.capture_ms[caps0[n]:]]
     run.topo_s, run.regen_s = list(drv.topo_s), list(drv.regen_s)
     run.records = sorted((r for r in sampler.kept if r is not None),
                          key=lambda r: r.index)

@@ -35,10 +35,39 @@ def regen_every(traffic: dict) -> int:
     return 1 << 30 if r is None else int(r)
 
 
+#: the program's default regrid parameters (``CouplerConfig.params``),
+#: which a configuration without ``params`` runs
+DEFAULT_PARAMS = {"scale": True, "correctA": True, "sigma": None}
+
+
+class ParamsError(ValueError):
+    """A configuration's ``params`` are malformed, or its traffic's driver
+    cannot hand them to the program."""
+
+
+def regrid_params(cfg: dict) -> dict:
+    """The configuration's regrid parameters as plain values: its
+    ``params`` over ``DEFAULT_PARAMS``; ``sigma`` None or a tuple of 2 or 3
+    floats (plane metres in x and y, metres of elevation in z)."""
+    given = cfg.get("params", {})
+    unknown = sorted(set(given) - set(DEFAULT_PARAMS))
+    if unknown:
+        raise ParamsError(f"configuration {cfg['name']!r}: params has "
+                          f"{unknown}; it takes {sorted(DEFAULT_PARAMS)}")
+    p = {**DEFAULT_PARAMS, **given}
+    if p["sigma"] is not None:
+        p["sigma"] = tuple(float(s) for s in p["sigma"])
+        if len(p["sigma"]) not in (2, 3):
+            raise ParamsError(f"configuration {cfg['name']!r}: params.sigma "
+                              f"{list(p['sigma'])} has not 2 or 3 values")
+    return p
+
+
 def coupler_config(cfg: dict, traffic: dict):
     from icebin_tpu_torch import CouplerConfig
+    from icebin_tpu_torch.regrid.matrices import RegridParams
     return CouplerConfig(dt=float(cfg["dt_seconds"]),
                          regen_every=regen_every(traffic),
                          min_thickness=float(cfg["min_thickness"]),
                          nv=int(cfg["nv"]),
-                         defer_ledger=bool(cfg["defer_ledger"]))
+                         params=RegridParams(**regrid_params(cfg)))

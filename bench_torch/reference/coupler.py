@@ -21,6 +21,9 @@ One step of one sheet, with forcing fE (8, nE) in ModelE's units:
 A regeneration rebuilds the matrices from the surface where H > 1 m and
 remaps the GCM's held EC state through E1vE0 (the exchange cells kept in
 both masks, M[e1, e0] = sum_x o_x h1(x, e1) h0(x, e0)).
+
+These matrices are those of the regrid parameters scale and correctA with
+no smoothing (sigma): ``check_params`` refuses any others.
 """
 from __future__ import annotations
 
@@ -37,11 +40,20 @@ TSURF_OFFSET = 273.15            # degC -> K
 REPAIR_ROWS = (0, 1, 2, 3, 5, 6, 7)   # every forcing row but tsurf
 ENERGY_ROWS = (1, 2, 3, 5)       # smb_enth, deltah, heat_flux, geothermal
 SMB, TSURF, RAIN, RAIN_ENTH = 0, 4, 6, 7
+PARAMS = {"scale": True, "correctA": True, "sigma": None}
 STAT_KEYS = ("mass_in_E", "mass_delivered_I", "ice_mass",
              "mass_returned_I", "mass_clamp_I", "mass_residual",
              "energy_in_E", "energy_delivered_I", "energy_pdd_implied",
              "energy_storage_I", "energy_returned_I", "energy_clamp_I",
              "energy_residual", "mass_rain_through", "energy_rain_through")
+
+
+def check_params(params: dict) -> None:
+    """A ``ValueError`` unless ``params`` (scale, correctA, sigma) are the
+    ones this module computes: scale and correctA, no sigma."""
+    if dict(params) != PARAMS:
+        raise ValueError(f"reference/coupler.py computes the matrices of "
+                         f"{PARAMS}, not of {dict(params)}")
 
 
 @dataclasses.dataclass
@@ -319,7 +331,8 @@ class PeriodOut:
 
 
 def period(sheets: List[Sheet], states: Dict[str, SheetState], hcdefs,
-           forcings, dt, prec, *, regen: bool, held: Optional[Dict] = None,
+           forcings, dt, prec, *, params: dict, regen: bool,
+           held: Optional[Dict] = None,
            held_default=0.0, keep_fields="last", keep_topo=False,
            min_thickness=1.0, mask_states=None) -> PeriodOut:
     """``len(forcings)`` coupling steps of every sheet from ``states`` with
@@ -327,7 +340,9 @@ def period(sheets: List[Sheet], states: Dict[str, SheetState], hcdefs,
     regeneration (and E1vE0 of ``held``).  ``keep_fields``: "all" or "last"
     steps' fields; ``keep_topo``: each step's TOPO as ModelE reads it after
     the step.  The matrices are those of ``mask_states`` (the states at the
-    last regeneration; by default ``states``)."""
+    last regeneration; by default ``states``), under the regrid parameters
+    ``params`` (``check_params``)."""
+    check_params(params)
     nhc = hcdefs.numel()
     masks = states if mask_states is None else mask_states
     mats = {s.name: matrices(s.xg, elevmask(masks[s.name], min_thickness),

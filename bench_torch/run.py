@@ -9,7 +9,8 @@ Run from the root of a checkout.  The cell is looked up by name in
 ``BENCHMARK.json``; its configuration (``configs/<config>.json``), traffic
 (``traffic/<traffic>.json``), limits (``limits/<cell>.json``), the two
 halves of its GCM grid kind (``gcm/<kind>.py``,
-``reference/gcm/<kind>.py``) and each metric's reader
+``reference/gcm/<kind>.py``), the reference module its configuration
+names (``reference/<module>.py``) and each metric's reader
 (``metrics/<metric>.py``) are found by name under this directory.  With
 ``--trace 0`` the last line of standard output is the cell's end-to-end
 metrics, with ``--trace 1`` its per-layer metrics, both as one JSON object
@@ -48,8 +49,11 @@ for p in (str(HERE), str(ROOT)):
 def load_cell(name: str):
     """(workload, configuration, traffic, limits, BENCHMARK.json) of cell
     ``name``; stops where the configuration's GCM grid kind is unknown or
-    does not drive the traffic (``harness/gcm.py``)."""
-    from harness import gcm
+    does not drive the traffic (``harness/gcm.py``), where the traffic's
+    driver cannot hand the program the configuration's regrid parameters
+    (``harness/drivers.py``), or where its ``reference`` names no module
+    that judges them (``harness/check.py``)."""
+    from harness import check, drivers, gcm, system
 
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     wl = next((w for w in bench["workloads"] if w["name"] == name), None)
@@ -62,7 +66,9 @@ def load_cell(name: str):
     limits = json.loads((HERE / "limits" / f"{name}.json").read_text())
     try:
         gcm.find(cfg, traffic["driver"])
-    except gcm.KindError as e:
+        drivers.DRIVERS[traffic["driver"]].refuse(cfg)
+        check.reference(cfg)
+    except (gcm.KindError, system.ParamsError, check.ModuleError) as e:
         raise SystemExit(f"run.py: cell {name}: {e}") from None
     return wl, cfg, traffic, limits, bench
 

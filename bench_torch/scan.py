@@ -44,7 +44,6 @@ def scan(name, seed, first, last, every, device, res_km=None):
     drv.setup()
     abi = traffic["driver"] == "abi"
     inp = check.inputs(cfg, traffic, seed, device, REFERENCE, grid, res_km)
-    nA, nhc = inp.sheets[0].xg.nA, inp.hcdefs.numel()
     mt = float(cfg["min_thickness"])
     try:
         for p in range(last + 1):
@@ -54,7 +53,7 @@ def scan(name, seed, first, last, every, device, res_km=None):
             rec, _ = drv.kept_period(p, [])
             out = check.run_period(inp, rec.start, rec.held0, rec.month0,
                                    rec.step0, REFERENCE, abi, mt)
-            g, _ = check.numbers(rec, out, inp.sheets, nA, nhc, abi)
+            g, _ = check.numbers(rec, out, inp, abi)
             g["transport"] = check.transport(rec.rows,
                                              [s.name for s in inp.sheets])
             yield p, g, sorted(k for k, v in g.items()

@@ -178,9 +178,11 @@ class Melting:
 
     rec: object
     out: rc.PeriodOut
-    sheets: list
-    nA: int
-    nhc: int
+    inp: check.Inputs
+
+    @property
+    def sheets(self):
+        return self.inp.sheets
 
 
 def f32_ulp(x):
@@ -198,8 +200,7 @@ def melting():
     start, _ = check.initial(inp, traffic, SEED, CPU)
     out = check.run_period(inp, start, {}, 0, 0, REFERENCE, False,
                            float(cfg["min_thickness"]))
-    nA, nhc = inp.sheets[0].xg.nA, inp.hcdefs.numel()
-    rec = check.as_record(out, start, {}, 0, 0, nA, nhc, False)
+    rec = check.as_record(inp, out, start, {}, 0, 0, False)
     for sh in inp.sheets:
         s = sh.name
         e_in = sum(float(st[s][rc.STAT_KEYS.index("energy_in_E")])
@@ -224,7 +225,7 @@ def melting():
             p[9, j] += f32_ulp(r9[j])
             pf[k] = p
         out.fields[-1][s] = (fI, fE, fA)
-    return Melting(rec, out, inp.sheets, nA, nhc)
+    return Melting(rec, out, inp)
 
 
 def limits():
@@ -235,14 +236,14 @@ def limits():
 def test_a_sheet_reaching_the_melting_point_reads_under_the_limits(
         melting, monkeypatch):
     m = melting
-    g, _ = check.numbers(m.rec, m.out, m.sheets, m.nA, m.nhc, False)
+    g, _ = check.numbers(m.rec, m.out, m.inp, False)
     lim = limits()
     assert g["state"] <= lim["state"] and g["harvest"] <= lim["harvest"], g
     # without the floors (the numbers as they were) the same period fails
     whole = check.wgap
     monkeypatch.setattr(check, "wgap", lambda p, r, w, floor=0.0:
                         whole(p, r, w))
-    g0, _ = check.numbers(m.rec, m.out, m.sheets, m.nA, m.nhc, False)
+    g0, _ = check.numbers(m.rec, m.out, m.inp, False)
     assert g0["state"] > lim["state"] and g0["harvest"] > lim["harvest"], g0
 
 
@@ -257,7 +258,7 @@ def test_an_altered_answer_in_that_period_is_not_correct(melting):
     fE[3, int(torch.argmax(m.out.ref_mats[s].EvI.wM))] *= 2.0
     p["fE_out"] = fE
     rec.fields[-1][s] = p
-    g, _ = check.numbers(rec, m.out, m.sheets, m.nA, m.nhc, False)
+    g, _ = check.numbers(rec, m.out, m.inp, False)
     assert g["harvest"] > limits()["harvest"], g
 
 

@@ -22,24 +22,25 @@ OCEAN = "greenland_ocean.fused_yearly"
 TWIN = "greenland.fused_yearly"
 BENCH = bench.HERE
 
-# the harness, run.py and control.py as the GCM grid kinds left them
+# the harness, run.py and control.py as the GCM grid kinds, the
+# configurations' params and their reference modules left them
 HARNESS = {
     "harness/__init__.py":
         "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
     "harness/check.py":
-        "543431f322873249eb7b19fd9246b4eadb6bf390cef3cb9b1b80babfd5d7fd0d",
+        "093096e4389f910f53a38b789a834e1e1d496ac4d31bf58f3c1a3b7a06fcd2b0",
     "harness/common.py":
         "3b236e7d21e5ad57af2e77518ccac41315c481f74d95f71e4be66cd31e60ed70",
     "harness/drivers.py":
-        "82d45e2ca0bf6769cd10989dd3e1b153028e6570f5b8975dad31746f29625f86",
+        "524b919fb4e7cff6fcc8ef4f87473f672703f91dce55dd0095dc7fbb983f2001",
     "harness/gcm.py":
         "a19df319c83c209633376b0d1964aa593b882d96386edc2c5b1baf97dfc9c38a",
     "harness/system.py":
-        "8c0e77d48e5ca1853217264e9c639276d03ad8497027a0e1ea6144f669a35eff",
+        "20ad3411383300c8587c5fcbf66b51a6e5881500fd2de8d0573be13b2c00f817",
     "run.py":
-        "8af14668e0fac95c9c596906c46a1d3a7b901a2edbdb08dd975d313c48429c3f",
+        "db529181166a2bd14584836b152e7762cd71dafa2aa10089b7a2b498993a4edf",
     "control.py":
-        "035d6972dd56e5157656ae276ce0121bb11e1ba0fc521299a96c868388b73396",
+        "6639b1aae6fdc1c78c7fea01e710dbaa9b02fae50124bd07f1a12762d77df6ae",
 }
 
 
